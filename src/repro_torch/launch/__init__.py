@@ -1,0 +1,3 @@
+"""Command-line entry points (``python -m repro_torch.launch.train``)."""
+
+__all__: list[str] = []
