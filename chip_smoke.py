@@ -1,34 +1,53 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # needs one CUDA card; exits non-zero otherwise
-    python3 chip_smoke.py --profile    # also writes a torch.profiler table of
+    python3 chip_smoke.py --profile    # also writes torch.profiler tables of
                                        # two training steps to chiprun_out/
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. build   compile the CUDA kernels from the sources in this checkout
              (one nvcc per source, started together) and print the time.
   2. kernels hold each kernel against its plain PyTorch version on the card
-             at the main path's shapes (reddit-sim, 4 partitions, rcm layout;
-             N(0,1) inputs at F = 128, 256, 16) with assert_close(rtol=1e-5,
-             atol=1e-5), and time kernel, plain version and a library call
-             (a block-sparse BSR product where PyTorch runs it for f32, else
-             a dense matmul of the densified shard) with CUDA events.
+             at the main paths' shapes (reddit-sim and yelp-sim, 4
+             partitions, rcm layout; N(0,1) inputs) and time kernel, plain
+             version and a yardstick with CUDA events:
+             - spmm / spmm_t at F = 128, 256, 16, assert_close(rtol=1e-5,
+               atol=1e-5); yardstick a library call (a block-sparse BSR
+               product where PyTorch runs it for f32, else a dense matmul
+               of the densified shard);
+             - spmm_fused at F_in→F_out 128→256 with z, 256→256 with and
+               without z (and with the ReLU epilogue), 120→512 with z and
+               512→512; spmm_fused_t at F_in←F_out 256←256, 256←16,
+               16←256 and 512←512; rtol=1e-5 and atol = 1e-5·max|plain|
+               (two chained f32 contractions, K up to 512); yardstick the
+               composed path: the port's spmm / spmm_t kernel plus
+               torch.matmul, the same function unfused.
   3. steps   2 training steps at dropout 0 through the kernels and 2 through
-             the plain COO engine on the card; loss, grads and buffers agree
-             to 1e-3 in relative Frobenius norm, ||a - b|| / ||b|| (f32
-             through 4 layers with other summation orders, another matmul
-             order in the last layer, and ReLU masks that may flip where a
-             pre-activation lies within f32 rounding of 0: a flip moves a
-             few elements by a discrete amount, so an elementwise bound
-             would fail on correct code; a wrong tile moves the norm by far
-             more).
-  4. train   the main path: GraphDataPipeline.build + train_pipegcn on
-             reddit-sim at full width (4 partitions, GraphSAGE, feat 128,
-             hidden 256, 4 layers, 16 classes, variant pipegcn, blocksparse,
-             matmul_order auto, dropout 0.5) for 5 epochs. The kernels' launch
-             counts are zeroed just before and read just after; both must
-             equal the counts the schedule implies (4 spmm + 3 spmm_t per
-             training step, 4 spmm per evaluation).
+             the plain COO engine on the card, for agg=blocksparse (auto
+             order) and agg=fused (aggregate-first, which runs
+             spmm_fused_t, and auto), GraphSAGE, plus one GCN eval forward
+             through the fused kernels (in-kernel ReLU); loss, grads and
+             buffers agree to 1e-3 in relative Frobenius norm,
+             ||a - b|| / ||b|| (f32 through 4 layers with other summation
+             orders, and ReLU masks that may flip where a pre-activation
+             lies within f32 rounding of 0: a flip moves a few elements by
+             a discrete amount, so an elementwise bound would fail on
+             correct code; a wrong tile moves the norm by far more).
+  4. train   the main paths: GraphDataPipeline.build + train_pipegcn for 5
+             epochs each, at full width:
+             - reddit-sim (4 partitions, GraphSAGE, feat 128, hidden 256, 4
+               layers, 16 classes, variant pipegcn, dropout 0.5), with
+               agg=blocksparse / auto, agg=fused / auto and agg=fused /
+               aggregate-first;
+             - yelp-sim (4 partitions, GraphSAGE, feat 120, hidden 512, 4
+               layers, 24 classes multilabel BCE, F1 metric, dropout 0.1),
+               agg=fused / auto.
+             Every kernel's launch count is zeroed just before each run and
+             read just after; the counts must equal those the run's layer
+             orders imply (see expected_launches).
+  5. step    median train-step time (device sync after each step) of
+             reddit-sim and yelp-sim with agg=blocksparse and agg=fused
+             (auto order), timed in turns within this run.
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last the {"ok": true, "device": {...}} line.
 """
@@ -215,6 +234,111 @@ def _pad_rows(x, rows: int):
     return torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], 1) if pad else x
 
 
+def _close_to_scale(got, want, what) -> float:
+    """assert_close at rtol=1e-5, atol=1e-5·max|want|; returns max|got-want|."""
+    import torch
+    scale = float(want.abs().max()) or 1.0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale,
+                               msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+def _timed_pair(kern, other, reps: int = 20):
+    """Mean device ms of kern and other, timed in turns (k, o, o, k)."""
+    t = [cuda_time_ms(f, reps) for f in (kern, other, other, kern)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def phase_fused_kernels(topos):
+    """The fused pair vs plain versions and the composed path, at the
+    reddit-sim and yelp-sim shapes of the fused main paths."""
+    import torch
+    from repro_torch.kernels import gcn_spmm
+    from repro_torch.kernels.aggregate import get_engine
+    composed = get_engine("blocksparse")     # spmm kernel + torch.matmul
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fwd_cases = [("reddit-sim", 128, 256, True, False),
+                 ("reddit-sim", 256, 256, True, False),
+                 ("reddit-sim", 256, 256, False, False),
+                 ("reddit-sim", 256, 256, False, True),
+                 ("yelp-sim", 120, 512, True, False),
+                 ("yelp-sim", 512, 512, False, False)]
+    bwd_cases = [("reddit-sim", 256, 256), ("reddit-sim", 256, 16),
+                 ("reddit-sim", 16, 256), ("yelp-sim", 512, 512)]
+    rows = {"spmm_fused": [], "spmm_fused_t": []}
+
+    def shapes(name):
+        topo = topos[name]
+        fields = tuple(getattr(topo, f) for f in composed.fields)
+        n_nz = int((topo.tile_vals.abs().amax(dim=(-1, -2)) > 0).sum())
+        return (topo, fields, topo.tile_rows.shape[0], topo.max_inner,
+                topo.max_inner + topo.halo_size, n_nz)
+
+    def record(kernel, row, flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        row.update(bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        rows[kernel].append(row)
+        log(f"kernels: {kernel} {row['graph']} F_in {row['fin']} F_out "
+            f"{row['fout']}{' z' if row.get('with_z') else ''}"
+            f"{' relu' if row.get('relu') else ''} max_abs_err "
+            f"{row['max_abs_err']:.3g} kernel {row['ms']:.4f} ms composed "
+            f"{row['composed_ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    for name, fin, fout, with_z, relu in fwd_cases:
+        topo, fields, P, R, C, n_nz = shapes(name)
+        h = torch.randn(P, C, fin, device="cuda", generator=gen)
+        w = torch.randn(fin, fout, device="cuda", generator=gen) / fin ** 0.5
+        b = 0.1 * torch.randn(fout, device="cuda", generator=gen)
+        args = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+                topo.tile_cols, topo.tile_vals, h, w, b, R)
+        kern = (lambda a=args, z=with_z, r=relu:
+                gcn_spmm.spmm_fused(*a, relu=r, with_z=z))
+        plain = (lambda a=args, z=with_z, r=relu:
+                 gcn_spmm.spmm_fused_plain(*a[2:], relu=r, with_z=z))
+        comp = (lambda f=fields, h=h, w=w, b=b, z=with_z, r=relu:
+                composed.aggregate_transform(f, h, w, b, R, relu=r, with_z=z))
+        (u, z), (pu, pz) = kern(), plain()
+        torch.cuda.synchronize()
+        err = _close_to_scale(u, pu, f"spmm_fused {name} {fin}->{fout}")
+        if with_z:
+            err = max(err, _close_to_scale(z, pz, f"spmm_fused z {name}"))
+        ms, composed_ms = _timed_pair(kern, comp)
+        flops = 2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout
+        nbytes = 4.0 * (n_nz * 128 * 128 + P * C * fin + fin * fout + fout
+                        + P * R * fout + (P * R * fin if with_z else 0))
+        record("spmm_fused", dict(
+            graph=name, fin=fin, fout=fout, with_z=with_z, relu=relu,
+            max_abs_err=err, ms=ms, composed_ms=composed_ms,
+            plain_ms=cuda_time_ms(plain, 5)), flops, nbytes)
+    for name, fin, fout in bwd_cases:
+        topo, fields, P, R, C, n_nz = shapes(name)
+        du = torch.randn(P, R, fout, device="cuda", generator=gen)
+        w = torch.randn(fin, fout, device="cuda", generator=gen) / fout ** 0.5
+        args = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+                topo.tile_t_in, topo.tile_t_perm, topo.tile_vals, du, w, C)
+        kern = lambda a=args: gcn_spmm.spmm_fused_t(*a)        # noqa: E731
+        plain = lambda a=args: gcn_spmm.spmm_fused_t_plain(*a[2:])  # noqa: E731
+        comp = (lambda f=fields, du=du, w=w:
+                composed.aggregate_transform_t(f, du, w, C))
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = _close_to_scale(got, want, f"spmm_fused_t {name} {fin}<-{fout}")
+        ms, composed_ms = _timed_pair(kern, comp)
+        # the dense product du @ wᵀ counted once per row, as the composed
+        # path does it (the kernel's per-slot prologue is its own cost)
+        flops = 2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout
+        nbytes = 4.0 * (n_nz * 128 * 128 + P * R * fout + fin * fout
+                        + P * C * fin)
+        record("spmm_fused_t", dict(
+            graph=name, fin=fin, fout=fout, max_abs_err=err, ms=ms,
+            composed_ms=composed_ms, plain_ms=cuda_time_ms(plain, 5)),
+            flops, nbytes)
+    return rows
+
+
 def _rel_close(a, b, what, rel=1e-3):
     """||a - b|| / ||b|| <= rel (Frobenius); returns the ratio."""
     import torch
@@ -227,131 +351,234 @@ def _rel_close(a, b, what, rel=1e-3):
 
 
 def phase_steps(pipeline):
-    """2 training steps through the kernels vs 2 through the COO engine."""
+    """2 training steps through the kernels vs 2 through the COO engine,
+    for each tile engine and order; then a GCN eval forward through the
+    fused kernels (their in-kernel ReLU) vs the COO engine."""
     import torch
     from repro_torch.core import ModelConfig, PipeConfig, PipeGCN
     ds = pipeline.dataset
     worst = 0.0
-    models = {agg: PipeGCN(ModelConfig(kind="sage", feat_dim=ds.feat_dim,
-                                       hidden=256, num_layers=4,
-                                       num_classes=ds.num_classes,
-                                       dropout=0.0, agg=agg,
-                                       matmul_order="auto"),
-                           PipeConfig.named("pipegcn"))
-              for agg in ("blocksparse", "coo")}
-    params0 = models["coo"].init_params(
+
+    def config(agg, order, kind="sage"):
+        return ModelConfig(kind=kind, feat_dim=ds.feat_dim, hidden=256,
+                           num_layers=4, num_classes=ds.num_classes,
+                           dropout=0.0, agg=agg, matmul_order=order)
+
+    params0 = PipeGCN(config("coo", "auto"), PipeConfig()).init_params(
         torch.Generator(device="cuda").manual_seed(0))
-    state = {agg: (dict(params0), m.init_buffers(pipeline.topo))
-             for agg, m in models.items()}
-    for t in range(2):
-        out = {}
-        for agg, m in models.items():
-            params, bufs = state[agg]
-            loss, grads, bufs, logits = m.train_step(
-                pipeline.topo, params, bufs, pipeline.train_data)
-            out[agg] = (loss, grads, bufs, logits)
-            state[agg] = ({k: params[k] - 0.01 * grads[k] for k in params},
-                          bufs)
-        (lk, gk, bk, zk), (lp, gp, bp, zp) = out["blocksparse"], out["coo"]
-        assert zk.shape == (4, pipeline.topo.max_inner, ds.num_classes)
-        worst = max(worst, _rel_close(lk.reshape(1), lp.reshape(1),
-                                      f"step {t} loss"))
-        for k in gp:
-            worst = max(worst, _rel_close(gk[k], gp[k], f"step {t} grad {k}"))
-        for kind in ("feat", "grad"):
-            for ell, (a, b) in enumerate(zip(bk[kind], bp[kind])):
-                worst = max(worst, _rel_close(a, b, f"step {t} {kind}[{ell}]"))
-        log(f"steps: step {t} loss kernels {float(lk):.6f} "
-            f"plain-coo {float(lp):.6f}")
+    for agg, order in (("blocksparse", "auto"), ("fused", "aggregate-first"),
+                       ("fused", "auto")):
+        models = {a: PipeGCN(config(a, order), PipeConfig.named("pipegcn"))
+                  for a in (agg, "coo")}
+        state = {a: (dict(params0), m.init_buffers(pipeline.topo))
+                 for a, m in models.items()}
+        diffs = []
+        for t in range(2):
+            out = {}
+            for a, m in models.items():
+                params, bufs = state[a]
+                loss, grads, bufs, logits = m.train_step(
+                    pipeline.topo, params, bufs, pipeline.train_data)
+                out[a] = (loss, grads, bufs, logits)
+                state[a] = ({k: params[k] - 0.01 * grads[k] for k in params},
+                            bufs)
+            (lk, gk, bk, zk), (lp, gp, bp, zp) = out[agg], out["coo"]
+            assert zk.shape == (4, pipeline.topo.max_inner, ds.num_classes)
+            what = f"{agg}/{order} step {t}"
+            diffs.append(_rel_close(lk.reshape(1), lp.reshape(1),
+                                    f"{what} loss"))
+            diffs += [_rel_close(gk[k], gp[k], f"{what} grad {k}") for k in gp]
+            for kind in ("feat", "grad"):
+                diffs += [_rel_close(a, b, f"{what} {kind}[{ell}]")
+                          for ell, (a, b) in enumerate(zip(bk[kind], bp[kind]))]
+            log(f"steps: {what} loss kernels {float(lk):.6f} "
+                f"plain-coo {float(lp):.6f}")
+        log(f"steps: {agg}/{order} worst relative norm diff {max(diffs):.3g}")
+        worst = max(worst, *diffs)
+    gcn = {a: PipeGCN(config(a, "aggregate-first", kind="gcn"), PipeConfig())
+           for a in ("fused", "coo")}
+    params = gcn["coo"].init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    logits = {a: m.forward(pipeline.topo, params, pipeline.val_data)[1]
+              for a, m in gcn.items()}
+    worst = max(worst, _rel_close(logits["fused"], logits["coo"],
+                                  "gcn eval forward logits"))
     log(f"steps: loss, grads and buffers agree (worst relative norm diff "
         f"{worst:.3g} <= 1e-3)")
     return worst
 
 
-def phase_train(pipeline):
-    """The main path, with the launch counts zeroed just before it."""
-    from repro_torch.core import ModelConfig, PipeConfig, PipeGCN, train_pipegcn
+KERNELS = ("spmm", "spmm_t", "spmm_fused", "spmm_fused_t")
+
+
+def expected_launches(model, topo, steps: int, evals: int) -> dict:
+    """Kernel launches a run of `steps` train steps and `evals` eval
+    forwards implies, from its layer orders. A transform-first layer runs
+    spmm forward and spmm_t backward (layer 0 too: its weight gradient
+    needs Pᵀ·du). An aggregate-first layer runs spmm_fused (fused engine)
+    or spmm (blocksparse) forward, and spmm_fused_t or spmm_t backward
+    except at layer 0, where Alg. 1 stops the backward."""
+    fused = model.model.agg == "fused"
+    n = dict.fromkeys(KERNELS, 0)
+    for ell, order in enumerate(model.layer_orders(topo, train=True)):
+        tf = order == "transform-first"
+        n["spmm" if tf or not fused else "spmm_fused"] += steps
+        if tf or ell > 0:
+            n["spmm_t" if tf or not fused else "spmm_fused_t"] += steps
+    for order in model.layer_orders(topo, train=False):
+        tf = order == "transform-first"
+        n["spmm" if tf or not fused else "spmm_fused"] += evals
+    return n
+
+
+def _model_config(pipeline, agg, order):
+    """The dataset's published model (graph/synthetic.py templates) at
+    full width, GraphSAGE."""
+    from repro_torch.core import ModelConfig
     from repro_torch.graph.synthetic import model_template
-    from repro_torch.kernels import gcn_spmm
     ds = pipeline.dataset
-    tpl = model_template("reddit-sim")
-    mc = ModelConfig(kind="sage", feat_dim=ds.feat_dim, hidden=tpl["hidden"],
-                     num_layers=tpl["num_layers"], num_classes=ds.num_classes,
-                     dropout=tpl["dropout"], multilabel=ds.multilabel,
-                     agg="blocksparse", matmul_order="auto",
-                     layout=pipeline.layout)
+    tpl = model_template(ds.name)
+    return ModelConfig(kind="sage", feat_dim=ds.feat_dim, hidden=tpl["hidden"],
+                       num_layers=tpl["num_layers"],
+                       num_classes=ds.num_classes, dropout=tpl["dropout"],
+                       multilabel=ds.multilabel, agg=agg, matmul_order=order,
+                       layout=pipeline.layout), tpl["lr"]
+
+
+def train_run(pipeline, agg, order):
+    """One main path: train_pipegcn for EPOCHS epochs, with every launch
+    count zeroed just before and read just after; the counts must equal
+    expected_launches."""
+    from repro_torch.core import PipeConfig, PipeGCN, train_pipegcn
+    from repro_torch.kernels import gcn_spmm
+    name = pipeline.dataset.name
+    mc, lr = _model_config(pipeline, agg, order)
+    for k in KERNELS:
+        getattr(gcn_spmm, k).launches = 0
+    res = train_pipegcn(pipeline, mc, PipeConfig.named("pipegcn"),
+                        epochs=EPOCHS, lr=lr, seed=0, eval_every=EVAL_EVERY,
+                        log=lambda s: log(f"train {name} {agg}/{order}: {s}"),
+                        device="cuda")
+    launches = {k: getattr(gcn_spmm, k).launches for k in KERNELS}
+    model = PipeGCN(mc, PipeConfig.named("pipegcn"))
+    n_eval = len(res.history["epoch"])
+    expect = expected_launches(model, pipeline.topo, EPOCHS, n_eval)
+    assert all(math.isfinite(v) for v in res.history["loss"]), res.history
+    assert launches == expect, (name, agg, order, launches, expect)
+    log(f"train {name} {agg}/{order}: loss {res.history['loss'][-1]:.4f} "
+        f"val {res.final_metrics['val']:.4f} epochs/s "
+        f"{res.epochs_per_sec:.3f} launches {launches} ({EPOCHS} steps, "
+        f"{n_eval} evals)")
+    return dict(graph=name, agg=agg, order=order,
+                orders_train=model.layer_orders(pipeline.topo, train=True),
+                orders_eval=model.layer_orders(pipeline.topo, train=False),
+                loss=res.history["loss"][-1], val=res.final_metrics["val"],
+                epochs_per_sec=res.epochs_per_sec, launches=launches,
+                steps=EPOCHS, evals=n_eval)
+
+
+def phase_train(reddit, yelp):
+    """The main paths of both slices, each with its own launch counts."""
+    runs = {}
+    mc, _ = _model_config(reddit, "blocksparse", "auto")
     assert (mc.feat_dim, mc.hidden, mc.num_layers, mc.num_classes,
             mc.dropout) == (128, 256, 4, 16, 0.5)
-    gcn_spmm.spmm.launches = 0
-    gcn_spmm.spmm_t.launches = 0
-    res = train_pipegcn(pipeline, mc, PipeConfig.named("pipegcn"),
-                        epochs=EPOCHS, lr=tpl["lr"], seed=0,
-                        eval_every=EVAL_EVERY, log=lambda s: log(f"train: {s}"),
-                        device="cuda")
-    launches = {"spmm": gcn_spmm.spmm.launches,
-                "spmm_t": gcn_spmm.spmm_t.launches}
-    n_eval = len(res.history["epoch"])
-    # every layer aggregates once per step and per eval; the backward
-    # transposes every layer but layer 0 (Alg. 1 stops there), which needs
-    # Pᵀ·du only for a transform-first weight gradient
-    L = mc.num_layers
-    first_tf = PipeGCN(mc, PipeConfig.named("pipegcn")).layer_orders(
-        pipeline.topo)[0] == "transform-first"
-    expect = {"spmm": L * EPOCHS + L * n_eval,
-              "spmm_t": (L - 1 + first_tf) * EPOCHS}
-    assert all(math.isfinite(v) for v in res.history["loss"]), res.history
-    assert launches == expect, (launches, expect)
-    log(f"train: loss {res.history['loss'][-1]:.4f} val "
-        f"{res.final_metrics['val']:.4f} epochs/s {res.epochs_per_sec:.3f} "
-        f"launches {launches} ({EPOCHS} steps, {n_eval} evals)")
-    return res, launches
+    mc, _ = _model_config(yelp, "fused", "auto")
+    assert (mc.feat_dim, mc.hidden, mc.num_layers, mc.num_classes,
+            mc.dropout, mc.multilabel) == (120, 512, 4, 24, 0.1, True)
+    for pipeline, agg, order in ((reddit, "blocksparse", "auto"),
+                                 (reddit, "fused", "auto"),
+                                 (reddit, "fused", "aggregate-first"),
+                                 (yelp, "fused", "auto")):
+        runs[pipeline.dataset.name, agg, order] = train_run(pipeline, agg,
+                                                            order)
+    # reddit-sim under auto: pricing the fused kernels moves training
+    # layers 1-2 to transform-first, so a step runs 1 spmm_fused + 3 spmm
+    # + 3 spmm_t and an eval 3 spmm_fused + 1 spmm
+    a, t = "aggregate-first", "transform-first"
+    r = runs["reddit-sim", "fused", "auto"]
+    assert r["orders_train"] == (a, t, t, t), r["orders_train"]
+    assert r["orders_eval"] == (a, a, a, t), r["orders_eval"]
+    return runs
 
 
-def phase_profile(pipeline):
-    """Optional: torch.profiler table of two training steps, written under
-    chiprun_out/; prints the device time per kernel name."""
+def _timed_steps(step, state, n: int) -> list[float]:
+    """Host ms of n train steps, each ended by a device sync; `state` is
+    the (topo, params, opt_state, buffers, data, generator) list, updated
+    in place."""
+    import torch
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = step(*state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        state[1:4] = out[1:4]
+    return times
+
+
+def phase_step_times(reddit, yelp):
+    """Median train-step ms of blocksparse vs fused (auto order) on each
+    graph, 2 warm-up steps, then 10 steps each in turns (bs, f, f, bs)."""
+    import torch
+    from repro_torch.core import HealthConfig, PipeConfig, PipeGCN, make_train_step
+    from repro_torch.optim import adam
+    out = {}
+    for pipeline in (reddit, yelp):
+        state = {}
+        for agg in ("blocksparse", "fused"):
+            mc, lr = _model_config(pipeline, agg, "auto")
+            model = PipeGCN(mc, PipeConfig.named("pipegcn"))
+            opt = adam(lr)
+            params = model.init_params(
+                torch.Generator(device="cuda").manual_seed(0))
+            state[agg] = (make_train_step(model, opt, HealthConfig()), [
+                pipeline.topo, params, opt.init(params),
+                model.init_buffers(pipeline.topo), pipeline.train_data,
+                torch.Generator(device="cuda").manual_seed(1)])
+            _timed_steps(*state[agg], 2)
+        times = {"blocksparse": [], "fused": []}
+        for agg in ("blocksparse", "fused", "fused", "blocksparse"):
+            times[agg] += _timed_steps(*state[agg], 10)
+        name = pipeline.dataset.name
+        out[name] = {}
+        for agg, ts in times.items():
+            q = sorted(ts)
+            out[name][agg] = dict(median=(q[9] + q[10]) / 2, q1=q[4],
+                                  q3=q[14], max=q[-1])
+            log(f"step: {name} {agg} train step ms over {len(q)} steps: "
+                f"median {out[name][agg]['median']:.3f} quartiles "
+                f"{q[4]:.3f} {q[14]:.3f} max {q[-1]:.3f}")
+    log("step: " + json.dumps(out))
+    return out
+
+
+def phase_profile(pipeline, agg):
+    """Optional: torch.profiler table of two training steps with engine
+    `agg`, written under chiprun_out/; prints the device time per kernel
+    name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import (HealthConfig, ModelConfig, PipeConfig,
-                                  PipeGCN, make_train_step)
+    from repro_torch.core import HealthConfig, PipeConfig, PipeGCN, make_train_step
     from repro_torch.optim import adam
-    ds = pipeline.dataset
-    model = PipeGCN(ModelConfig(kind="sage", feat_dim=ds.feat_dim, hidden=256,
-                                num_layers=4, num_classes=ds.num_classes,
-                                dropout=0.5, agg="blocksparse",
-                                matmul_order="auto"),
-                    PipeConfig.named("pipegcn"))
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    mc, lr = _model_config(pipeline, agg, "auto")
+    model = PipeGCN(mc, PipeConfig.named("pipegcn"))
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    opt = adam(0.01)
-    st, bufs = opt.init(params), model.init_buffers(pipeline.topo)
+    opt = adam(lr)
     step = make_train_step(model, opt, HealthConfig())
-    for _ in range(2):
-        _, params, st, bufs, _ = step(pipeline.topo, params, st, bufs,
-                                      pipeline.train_data, gen)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        _, params, st, bufs, _ = step(pipeline.topo, params, st, bufs,
-                                      pipeline.train_data, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    q = sorted(times)
-    log(f"profile: train step ms over {len(q)} steps: median "
-        f"{(q[9] + q[10]) / 2:.3f} quartiles {q[4]:.3f} {q[14]:.3f} "
-        f"max {q[-1]:.3f}")
+    state = [pipeline.topo, params, opt.init(params),
+             model.init_buffers(pipeline.topo), pipeline.train_data,
+             torch.Generator(device="cuda").manual_seed(1)]
+    _timed_steps(step, state, 2)     # warm-up
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            _, params, st, bufs, _ = step(pipeline.topo, params, st, bufs,
-                                          pipeline.train_data, gen)
-        torch.cuda.synchronize()
+        _timed_steps(step, state, 2)
     wall = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_step.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", f"profile_step_{agg}.txt"),
+              "w") as f:
         f.write(table)
     # device-side events only (kernels, copies): an operator row also
     # carries the device time of the kernels it launched
@@ -363,10 +590,51 @@ def phase_profile(pipeline):
                        getattr(e, "self_cuda_time_total", 0))
     total = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:12]
-    log("profile: " + json.dumps({
+    log(f"profile {agg}: " + json.dumps({
         "steps": 2, "wall_ms_profiled": wall * 1e3,
         "device_busy_ms": total / 1e3,
         "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}))
+
+
+# kernel -> (the TPU kernel it replaces, its CUDA source, the main-path run
+# whose launch count it reports, the shape its times are given at)
+KERNEL_INFO = {
+    "spmm": ("src/repro/kernels/gcn_spmm.py:110", "gcn_spmm.cu",
+             ("reddit-sim", "blocksparse", "auto"), dict(f=256)),
+    "spmm_t": ("src/repro/kernels/gcn_spmm.py:182", "gcn_spmm.cu",
+               ("reddit-sim", "blocksparse", "auto"), dict(f=256)),
+    "spmm_fused": ("src/repro/kernels/gcn_spmm.py:370", "gcn_fused.cu",
+                   ("reddit-sim", "fused", "auto"),
+                   dict(graph="reddit-sim", fin=128, fout=256)),
+    "spmm_fused_t": ("src/repro/kernels/gcn_spmm.py:458", "gcn_fused.cu",
+                     ("reddit-sim", "fused", "aggregate-first"),
+                     dict(graph="reddit-sim", fin=256, fout=256)),
+}
+
+
+def kernel_entry(name, rows, runs) -> dict:
+    """One entry of the {"kernels": [...]} line: times at the main path's
+    shape, the worst error over all shapes, launches from its main-path
+    run (and, under launches_by_run, from every run)."""
+    replaces, source, run, at = KERNEL_INFO[name]
+    assert runs[run]["launches"][name] > 0, (name, run, runs[run]["launches"])
+    main_row = next(r for r in rows if all(r[k] == v for k, v in at.items()))
+    err = max(r["max_abs_err"] for r in rows)
+    entry = dict(name=name, route="cuda",
+                 source="src/repro_torch/kernels/csrc/" + source,
+                 replaces=replaces, launches=runs[run]["launches"][name],
+                 max_abs_err=err, ms=main_row["ms"],
+                 plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+                 bound_by=main_row["bound_by"],
+                 library_ms=main_row.get("library_ms"), at=at,
+                 launches_by_run={"/".join(k): r["launches"][name]
+                                  for k, r in runs.items()},
+                 per_shape=rows)
+    if "library" in main_row:
+        entry["library"] = main_row["library"]
+    else:   # no single PyTorch call computes the fused function
+        entry["composed_ms"] = main_row["composed_ms"]
+    return entry
 
 
 def nvidia_smi_line() -> str:
@@ -384,47 +652,34 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.data import GraphDataPipeline
-    from repro_torch.kernels import gcn_spmm
     from repro_torch.core.pipegcn import exact_f32_matmul
     exact_f32_matmul()
     t_start = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda})")
     phase_build()
-    t0 = time.perf_counter()
-    pipeline = GraphDataPipeline.build("reddit-sim", 4, kind="sage",
-                                       agg="blocksparse", layout="auto",
-                                       device="cuda")
-    topo = pipeline.topo
-    log(f"pipeline: reddit-sim P=4 layout={pipeline.layout} max_inner "
-        f"{topo.max_inner} halo {topo.halo_size} combined "
-        f"{topo.max_inner + topo.halo_size} n_tiles {topo.tile_rows.shape[1]} "
-        f"built in {time.perf_counter() - t0:.2f} s")
-    rows = phase_kernels(topo)
-    phase_steps(pipeline)
-    res, launches = phase_train(pipeline)
+    pipelines = {}
+    for name in ("reddit-sim", "yelp-sim"):
+        t0 = time.perf_counter()
+        pipelines[name] = p = GraphDataPipeline.build(
+            name, 4, kind="sage", agg="fused", layout="auto", device="cuda")
+        topo = p.topo
+        log(f"pipeline: {name} P=4 layout={p.layout} max_inner "
+            f"{topo.max_inner} halo {topo.halo_size} combined "
+            f"{topo.max_inner + topo.halo_size} n_tiles "
+            f"{topo.tile_rows.shape[1]} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+    reddit, yelp = pipelines["reddit-sim"], pipelines["yelp-sim"]
+    rows = phase_kernels(reddit.topo)
+    rows.update(phase_fused_kernels({k: p.topo for k, p in pipelines.items()}))
+    phase_steps(reddit)
+    runs = phase_train(reddit, yelp)
+    phase_step_times(reddit, yelp)
     if "--profile" in argv:
-        phase_profile(pipeline)
-    sources = {"spmm": ("repro/kernels/gcn_spmm.py:110 spmm_block_sparse "
-                        "(pallas_call :126, kernel _kernel :85)"),
-               "spmm_t": ("repro/kernels/gcn_spmm.py:182 spmm_block_sparse_t "
-                          "(pallas_call :200, kernel _kernel_t :151)")}
-    kernels = []
-    for name in ("spmm", "spmm_t"):
-        main_row = next(r for r in rows[name] if r["f"] == 256)
-        err = max(r["max_abs_err"] for r in rows[name])
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/gcn_spmm.cu",
-            replaces="src/" + sources[name].split(" ")[0],
-            launches=launches[name], max_abs_err=err, max_err=err,
-            ms=main_row["ms"], kernel_ms=main_row["ms"],
-            plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
-            bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], library=main_row["library"],
-            at_f=256, per_f=rows[name]))
-    log(f"total: {time.perf_counter() - t_start:.1f} s "
-        f"(spmm launches per run {gcn_spmm.spmm.launches})")
+        for agg in ("blocksparse", "fused"):
+            phase_profile(reddit, agg)
+    kernels = [kernel_entry(name, rows[name], runs) for name in KERNELS]
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

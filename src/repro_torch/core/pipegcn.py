@@ -15,7 +15,8 @@ flattened partition×row axis, and one kernel launch covers all partitions.
 
 This slice runs the unsplit, fault-free, identity-wire step: variants
 vanilla / pipegcn / -g / -f / -gf, k-step FIFOs (``staleness_steps``) and
-the fused deferred exchange, with the "coo" and "blocksparse" engines.
+the fused deferred exchange, with the "coo", "blocksparse" and "fused"
+engines.
 The options it does not run raise ``NotImplementedError`` when a
 ``PipeGCN`` is built, naming the ROADMAP item that ports them.
 
@@ -366,8 +367,10 @@ class PipeGCN:
         """Per-layer matmul ordering the step runs with: forced, or "auto"
         through the static FLOP model fed the shard's effective sparse work
         (n_tiles·T² for the tile engines, the padded COO length otherwise)
-        — the JAX package's `_base_orders` inputs, so both resolve to the
-        same orders (there are no sliced layers to override it here)."""
+        and priced for the fused kernels when the engine is "fused" — the
+        JAX package's `_base_orders` inputs on its unsplit schedule, so
+        both resolve to the same orders (there are no sliced layers to
+        override it here)."""
         mo = self.model.matmul_order
         L = self.model.num_layers
         if mo != "auto":
@@ -380,14 +383,18 @@ class PipeGCN:
         from repro_torch.analysis.cost import choose_gcn_orders
         return choose_gcn_orders(self.model.layer_dims(), topo.max_inner,
                                  combined, nnz_eff, train=train,
-                                 fused=False, tile=TILE)
+                                 fused=self.engine.name == "fused",
+                                 tile=TILE)
 
     def _layer_forward(self, tslice, w, b, h_prev, halo, drop_mask,
                        order: str = "aggregate-first",
                        fuse_relu: bool = False, with_z: bool = True):
         """One GCN/SAGE layer over all partitions. Returns (u, (comb, z)):
         comb (P, combined, fin) is the [inner; halo] input after dropout, z
-        the aggregation residual (None under transform-first or at eval)."""
+        the aggregation residual (None under transform-first or at eval).
+        With `fuse_relu` u comes back activated: inside the fused kernel's
+        epilogue for a GCN layer under aggregate-first (SAGE adds its self
+        term after the kernel), as a plain op otherwise."""
         max_inner = h_prev.shape[1]
         fin = h_prev.shape[-1]
         comb = torch.cat([h_prev, halo], dim=1)
@@ -395,15 +402,18 @@ class PipeGCN:
             comb = comb * drop_mask
         sage = self.model.kind == "sage"
         w1 = w[:fin] if sage else w
+        in_kernel_relu = False
         if order == "transform-first":
             u = self.engine.spmm(tslice, comb @ w1, max_inner) + b
             z = None
         else:
+            in_kernel_relu = fuse_relu and not sage
             u, z = self.engine.aggregate_transform(
-                tslice, comb, w1, b, max_inner, with_z=with_z)
+                tslice, comb, w1, b, max_inner, relu=in_kernel_relu,
+                with_z=with_z)
         if sage:
             u = u + comb[:, :max_inner] @ w[fin:]
-        if fuse_relu:
+        if fuse_relu and not in_kernel_relu:
             u = torch.relu(u)
         return u, (comb, z)
 

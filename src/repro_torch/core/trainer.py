@@ -115,12 +115,14 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
             f"step, local on the sim backend, L={model_cfg.num_layers})")
         why = "disabled" if pipe_cfg.overlap == "none" else "no feasible split"
         log(f"overlap schedule: unsplit ({why})")
-        orders = model.layer_orders(topo, train=True)
         how = ("static FLOP model" if model_cfg.matmul_order == "auto"
                else "forced")
-        log(f"matmul order ({how}, agg={model_cfg.agg}): "
-            + " ".join(f"L{i}:{'PH.W' if o == 'aggregate-first' else 'P.HW'}"
-                       for i, o in enumerate(orders)))
+        for what, train in (("matmul order", True),
+                            ("eval matmul order", False)):
+            orders = model.layer_orders(topo, train=train)
+            log(f"{what} ({how}, agg={model_cfg.agg}): "
+                + " ".join(f"L{i}:{'PH.W' if o == 'aggregate-first' else 'P.HW'}"
+                           for i, o in enumerate(orders)))
         if topo.tile_rows is not None:
             from repro_torch.analysis.cost import graph_layout_report
             rep = graph_layout_report(pipeline.pg)

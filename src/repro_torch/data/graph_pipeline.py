@@ -2,9 +2,9 @@
 padded shards -> tensors on the training device.
 
 Port of the JAX package's ``repro.data.graph_pipeline``. Building with a
-tile engine (``agg="blocksparse"``) also extracts the per-partition tile
-streams and their run pointers onto the Topology; the COO shards are
-always present.
+tile engine (``agg="blocksparse"`` or ``"fused"``) also extracts the
+per-partition tile streams and their run pointers onto the Topology; the
+COO shards are always present.
 """
 from __future__ import annotations
 

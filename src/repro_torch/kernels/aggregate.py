@@ -10,7 +10,8 @@ tensors that carry the leading partition axis:
     dcomb  = engine.aggregate_transform_t(tslice, du, w, num_cols)
 
 `tslice` is the tuple of Topology fields named by ``engine.fields``. The
-``aggregate_transform*`` pair composes the SpMM with a dense matmul.
+``aggregate_transform*`` pair composes the SpMM with a dense matmul, except
+in the fused engine.
 
   coo         padded COO: ``index_select`` + ``index_add_`` over a flattened
               partition×row index (exact in float64: the oracle).
@@ -18,6 +19,11 @@ tensors that carry the leading partition axis:
               (CUDA kernels on the card, the plain version on the CPU).
               Ragged row counts and feature widths are handled inside, so
               no zero padding is needed around it.
+  fused       blocksparse storage + the fused aggregate+transform kernels:
+              u = (P·comb)@w + b with the bias and an optional ReLU in the
+              epilogue and z as an optional second output, and
+              δcomb = Pᵀ·(du@wᵀ) with the dense product as a per-slot
+              prologue; the (rows, F_in) intermediates stay on chip.
 """
 from __future__ import annotations
 
@@ -39,11 +45,14 @@ class AggregationEngine:
         raise NotImplementedError
 
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
-                            with_z: bool = True):
-        """u = (P·comb) @ w + b, plus the aggregation residual z = P·comb
-        (None when `with_z=False`, e.g. at eval)."""
+                            relu: bool = False, with_z: bool = True):
+        """u = (P·comb) @ w + b (ReLU'd when `relu`), plus the aggregation
+        residual z = P·comb (None when `with_z=False`, e.g. at eval)."""
         z = self.spmm(tslice, comb, num_rows)
-        return z @ w + b, (z if with_z else None)
+        u = z @ w + b
+        if relu:
+            u = torch.relu(u)
+        return u, (z if with_z else None)
 
     def aggregate_transform_t(self, tslice, du, w, num_cols: int):
         """δcomb = Pᵀ·(du @ wᵀ)."""
@@ -101,15 +110,37 @@ class BlockSparseEngine(AggregationEngine):
                                dz.contiguous(), num_cols)
 
 
-ENGINES = {e.name: e for e in (CooEngine(), BlockSparseEngine())}
+class FusedBlockSparseEngine(BlockSparseEngine):
+    """Block-sparse tiles + the fused aggregate+transform kernels.
+
+    The primitive spmm/spmm_t (the transform-first ordering) are
+    inherited; the `aggregate_transform*` pair runs the single-pass fused
+    kernels (``gcn_spmm.spmm_fused`` / ``spmm_fused_t``)."""
+
+    name = "fused"
+
+    def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
+                            relu: bool = False, with_z: bool = True):
+        row_ptr, live, rows, cols, vals = tslice[:5]
+        return gcn_spmm.spmm_fused(row_ptr, live, rows, cols, vals,
+                                   comb.contiguous(), w.contiguous(),
+                                   b.contiguous(), num_rows, relu=relu,
+                                   with_z=with_z)
+
+    def aggregate_transform_t(self, tslice, du, w, num_cols: int):
+        vals = tslice[4]
+        col_ptr, t_live, t_out, t_in, t_perm = tslice[5:]
+        return gcn_spmm.spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm,
+                                     vals, du.contiguous(), w.contiguous(),
+                                     num_cols)
+
+
+ENGINES = {e.name: e for e in (CooEngine(), BlockSparseEngine(),
+                               FusedBlockSparseEngine())}
 
 
 def get_engine(name: str):
-    """Look up an aggregation engine ("coo" | "blocksparse")."""
-    if name == "fused":
-        raise NotImplementedError(
-            "agg='fused' is not ported yet (ROADMAP Queue 2: the fused "
-            "aggregate+transform kernel pair)")
+    """Look up an aggregation engine ("coo" | "blocksparse" | "fused")."""
     try:
         return ENGINES[name]
     except KeyError:

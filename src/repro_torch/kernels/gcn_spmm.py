@@ -13,15 +13,25 @@ of tiles. The two products run on hand-written CUDA kernels for Hopper
     spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz, num_cols)
                                                                  δcomb = Pᵀ·δz
 
-Both take the leading partition axis (one launch covers every partition).
-A CUDA tensor goes to the kernel and a CPU tensor to the plain PyTorch
-version beside it (``spmm_plain`` / ``spmm_t_plain``, the einsum +
-``index_add_`` form of the JAX package's dense oracle); nothing falls back
-from one to the other. The kernels use the per-partition run pointers
-(``run_pointers``) over the sorted streams, cut at each stream's live
-length (``live_lengths``: the slots past the last nonzero tile hold only
-padding); the plain versions walk the whole block index streams.
-``spmm.launches`` / ``spmm_t.launches`` count kernel launches.
+The fused aggregate+transform pair (``csrc/gcn_fused.cu``) replaces the
+Pallas kernels ``spmm_block_sparse_fused`` and ``spmm_block_sparse_fused_t``:
+
+    spmm_fused(row_ptr, live, rows, cols, vals, h, w, b, num_rows,
+               relu, with_z)                 u = (P·h)@w + b [ReLU], z = P·h
+    spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
+                 num_cols)                                δcomb = Pᵀ·(du@wᵀ)
+
+All four take the leading partition axis (one launch covers every
+partition). A CUDA tensor goes to the kernel and a CPU tensor to the plain
+PyTorch version beside it (``spmm_plain`` / ``spmm_t_plain``, the einsum +
+``index_add_`` form of the JAX package's dense oracle, and
+``spmm_fused_plain`` / ``spmm_fused_t_plain``, those plus a dense product);
+nothing falls back from one to the other. The kernels use the
+per-partition run pointers (``run_pointers``) over the sorted streams, cut
+at each stream's live length (``live_lengths``: the slots past the last
+nonzero tile hold only padding); the plain versions walk the whole block
+index streams. Each wrapper's ``launches`` attribute counts its kernel
+launches.
 
 Tile extraction (``build_tile_topology`` and the padding helpers) is a
 numpy copy of the JAX package's and builds the same arrays byte for byte.
@@ -83,19 +93,42 @@ def spmm_t_plain(t_out, t_in, t_perm, vals, dz, num_cols: int) -> torch.Tensor:
     return _scatter_blocks(contrib, t_out, -(-num_cols // TILE), num_cols)
 
 
+def spmm_fused_plain(rows, cols, vals, h, w, b, num_rows: int,
+                     relu: bool = False, with_z: bool = True):
+    """u = (P·h) @ w + b (ReLU'd when `relu`), aggregate first; returns
+    (u, z) with z = P·h, or (u, None) without `with_z`."""
+    z = spmm_plain(rows, cols, vals, h, num_rows)
+    u = z @ w + b
+    if relu:
+        u = torch.relu(u)
+    return u, (z if with_z else None)
+
+
+def spmm_fused_t_plain(t_out, t_in, t_perm, vals, du, w,
+                       num_cols: int) -> torch.Tensor:
+    """δcomb = Pᵀ·(du @ wᵀ); du (P, R, F_out), w (F_in, F_out)."""
+    return spmm_t_plain(t_out, t_in, t_perm, vals, du @ w.T, num_cols)
+
+
 # ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------
 
-def _library():
+_ARGTYPES = {      # C entry point -> (pointer args, int args), then the stream
+    "gcn_spmm": {"gcn_spmm_f32": (6, 6), "gcn_spmm_t_f32": (7, 6)},
+    "gcn_fused": {"gcn_spmm_fused_f32": (9, 8),
+                  "gcn_spmm_fused_t_f32": (8, 7)},
+}
+
+
+def _library(name: str):
     from repro_torch.kernels._build import load
-    lib = load("gcn_spmm")
+    lib = load(name)
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gcn_spmm_f32.argtypes = [vp] * 6 + [ci] * 6 + [vp]
-        lib.gcn_spmm_f32.restype = ci
-        lib.gcn_spmm_t_f32.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-        lib.gcn_spmm_t_f32.restype = ci
+        for fn, (n_ptr, n_int) in _ARGTYPES[name].items():
+            getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+            getattr(lib, fn).restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -123,6 +156,28 @@ def _check_kernel_args(ptr, live, idx, vals, x, nblocks: int, name: str):
                          f"{tuple(vals.shape)}, input {tuple(x.shape)}")
 
 
+def _check_weight(w, b, x, name: str, fin: int | None = None,
+                  fout: int | None = None):
+    """The dense operands of a fused kernel: float32, contiguous (a SAGE
+    weight's row slice w[:fin] is), on x's device; w 2-D with `fin` rows
+    and `fout` columns where given, b (w.shape[1],) where given."""
+    dense = [w] if b is None else [w, b]
+    if any(t.device != x.device for t in dense):
+        raise ValueError(f"{name}: w and b must be on {x.device}")
+    if any(t.dtype != torch.float32 for t in dense):
+        raise TypeError(f"{name}: the CUDA kernel takes float32 weights, "
+                        f"got {[t.dtype for t in dense]}")
+    if not all(t.is_contiguous() for t in dense):
+        raise ValueError(f"{name}: w and b must be contiguous, got strides "
+                         f"{[t.stride() for t in dense]}")
+    if (w.dim() != 2 or fin not in (None, w.shape[0])
+            or fout not in (None, w.shape[1])
+            or (b is not None and b.shape != (w.shape[1],))):
+        raise ValueError(f"{name}: w {tuple(w.shape)} and b "
+                         f"{None if b is None else tuple(b.shape)} do not "
+                         f"match F_in {fin}, F_out {fout}")
+
+
 def _raise_on_error(code: int, name: str):
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
@@ -143,7 +198,7 @@ def spmm(row_ptr, live, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
     p, n = cols.shape
     z = torch.empty(p, num_rows, h.shape[2], device=h.device,
                     dtype=torch.float32)
-    code = _library().gcn_spmm_f32(
+    code = _library("gcn_spmm").gcn_spmm_f32(
         row_ptr.data_ptr(), live.data_ptr(), cols.data_ptr(), vals.data_ptr(),
         h.data_ptr(), z.data_ptr(), p, nrb, n, h.shape[1], num_rows, h.shape[2],
         torch.cuda.current_stream(h.device).cuda_stream)
@@ -173,7 +228,7 @@ def spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
     p, n = t_in.shape
     out = torch.empty(p, num_cols, dz.shape[2], device=dz.device,
                       dtype=torch.float32)
-    code = _library().gcn_spmm_t_f32(
+    code = _library("gcn_spmm").gcn_spmm_t_f32(
         col_ptr.data_ptr(), t_live.data_ptr(), t_in.data_ptr(),
         t_perm.data_ptr(), vals.data_ptr(), dz.data_ptr(), out.data_ptr(),
         p, ncb, n, dz.shape[1], num_cols, dz.shape[2],
@@ -184,6 +239,76 @@ def spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
 
 
 spmm_t.launches = 0
+
+FUSED_MAX_FIN = 512     # 8 blocks of 64 columns: the portable cluster size
+
+
+def spmm_fused(row_ptr, live, rows, cols, vals, h, w, b, num_rows: int,
+               relu: bool = False, with_z: bool = True):
+    """Fused block-sparse u = (P·h) @ w + b over all partitions, aggregate
+    first, with an optional ReLU epilogue and the residual z = P·h.
+
+    Stream arguments as for `spmm`; h (P, C, F_in), w (F_in, F_out), b
+    (F_out,). Returns (u (P, num_rows, F_out), z (P, num_rows, F_in) or
+    None without `with_z`). On CUDA: float32, contiguous, F_in ≤ 512, one
+    kernel launch; z stays on chip unless asked for."""
+    if not h.is_cuda:
+        return spmm_fused_plain(rows, cols, vals, h, w, b, num_rows,
+                                relu=relu, with_z=with_z)
+    nrb = -(-num_rows // TILE)
+    _check_kernel_args(row_ptr, live, (cols,), vals, h, nrb, "spmm_fused")
+    p, n = cols.shape
+    fin = h.shape[2]
+    _check_weight(w, b, h, "spmm_fused", fin=fin)
+    if fin > FUSED_MAX_FIN:
+        raise ValueError(f"spmm_fused: F_in {fin} > {FUSED_MAX_FIN} (one "
+                         "thread-block cluster holds the z row block)")
+    fout = w.shape[1]
+    u = torch.empty(p, num_rows, fout, device=h.device, dtype=torch.float32)
+    z = (torch.empty(p, num_rows, fin, device=h.device, dtype=torch.float32)
+         if with_z else None)
+    code = _library("gcn_fused").gcn_spmm_fused_f32(
+        row_ptr.data_ptr(), live.data_ptr(), cols.data_ptr(),
+        vals.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
+        u.data_ptr(), z.data_ptr() if with_z else None, p, nrb, n,
+        h.shape[1], num_rows, fin, fout, int(relu),
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on_error(code, "spmm_fused")
+    spmm_fused.launches += 1
+    return u, z
+
+
+spmm_fused.launches = 0
+
+
+def spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
+                 num_cols: int) -> torch.Tensor:
+    """Fused block-sparse δcomb = Pᵀ·(du @ wᵀ) over all partitions; the
+    (rows, F_in) product du @ wᵀ is never built, nor wᵀ.
+
+    Stream arguments as for `spmm_t`; du (P, R, F_out), w (F_in, F_out).
+    Returns δcomb (P, num_cols, F_in). On CUDA: float32, contiguous, one
+    kernel launch."""
+    if not du.is_cuda:
+        return spmm_fused_t_plain(t_out, t_in, t_perm, vals, du, w, num_cols)
+    ncb = -(-num_cols // TILE)
+    _check_kernel_args(col_ptr, t_live, (t_in, t_perm), vals, du, ncb,
+                       "spmm_fused_t")
+    p, n = t_in.shape
+    _check_weight(w, None, du, "spmm_fused_t", fout=du.shape[2])
+    fin = w.shape[0]
+    out = torch.empty(p, num_cols, fin, device=du.device, dtype=torch.float32)
+    code = _library("gcn_fused").gcn_spmm_fused_t_f32(
+        col_ptr.data_ptr(), t_live.data_ptr(), t_in.data_ptr(),
+        t_perm.data_ptr(), vals.data_ptr(), du.data_ptr(), w.data_ptr(),
+        out.data_ptr(), p, ncb, n, du.shape[1], num_cols, fin, du.shape[2],
+        torch.cuda.current_stream(du.device).cuda_stream)
+    _raise_on_error(code, "spmm_fused_t")
+    spmm_fused_t.launches += 1
+    return out
+
+
+spmm_fused_t.launches = 0
 
 
 def run_pointers(stream: np.ndarray, num_blocks: int) -> np.ndarray:

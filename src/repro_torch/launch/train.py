@@ -25,8 +25,6 @@ def unported_flags(args) -> list[str]:
     bad = []
     if args.workload != "gcn":
         bad.append("--workload lm (the transformer LM workload is not ported)")
-    if args.agg == "fused":
-        bad.append("--agg fused (ROADMAP Queue 2: the fused kernel pair)")
     if args.spmd or args.parts_per_device != 1:
         bad.append("--spmd / --parts-per-device (ROADMAP Queue 1 item 7: "
                    "multi-GPU)")
@@ -89,7 +87,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--agg", default="coo",
                     choices=["coo", "blocksparse", "fused"],
                     help="aggregation engine for the Eq. 3/4 SpMM "
-                         "(blocksparse = the CUDA block-sparse kernels)")
+                         "(blocksparse = the CUDA block-sparse kernels; "
+                         "fused = those plus the fused aggregate+transform "
+                         "kernels for aggregate-first layers)")
     ap.add_argument("--matmul-order", default="auto",
                     choices=["auto", "aggregate-first", "transform-first"],
                     help="layer contraction order for P·H·W; auto picks per "

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(float32, ragged row counts and feature widths). Needs a CUDA card and
+(float32, ragged row counts and feature widths), the block-sparse SpMM pair
+and the fused aggregate+transform pair. Needs a CUDA card and
 nvcc; skips without a card. Imports no JAX, so it runs on a machine with
 only the port's dependencies:
 
@@ -74,3 +75,105 @@ def test_cuda_wrapper_refuses_float64():
     h = torch.randn(1, 256, 8, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         gcn_spmm.spmm(rp, live, st["rows"], st["cols"], st["vals"], h, 128)
+
+
+def _card_streams(rows, cols, nnz, parts=3):
+    """Device tile streams, run pointers and live lengths of random shards."""
+    streams = _random_streams(rows, cols, nnz, parts)
+    st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
+    st["row_ptr"] = torch.from_numpy(gcn_spmm.run_pointers(
+        streams["rows"], -(-rows // 128))).cuda()
+    st["col_ptr"] = torch.from_numpy(gcn_spmm.run_pointers(
+        streams["t_out"], -(-cols // 128))).cuda()
+    st["live"] = torch.from_numpy(gcn_spmm.live_lengths(streams["vals"])).cuda()
+    st["t_live"] = torch.from_numpy(gcn_spmm.live_lengths(
+        streams["vals"], streams["t_perm"])).cuda()
+    return st
+
+
+def _close_to_scale(got, want):
+    """Two chained f32 contractions (a tile run, then K ≤ 512 of the dense
+    product) round differently from the plain version; the bound is scaled
+    to the output's magnitude: 1e-5 · max|want| is ~170 ulp of the largest
+    element, far below what a wrong tile or column slice moves."""
+    scale = float(want.abs().max()) or 1.0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fin,fout", [(128, 256), (256, 16), (120, 24),
+                                      (512, 512)])
+@pytest.mark.parametrize("relu,with_z", [(False, True), (True, False)])
+def test_cuda_fused_kernel_matches_plain(fin, fout, relu, with_z):
+    """spmm_fused against spmm_fused_plain on the card, f32, ragged rows
+    and widths, with zero padding tiles past the live lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    st = _card_streams(300, 1000, 2000)
+    parts = st["rows"].shape[0]
+    h = torch.randn(parts, 1000, fin, device="cuda")
+    w = torch.randn(2 * fin, fout, device="cuda") / fin ** 0.5
+    b = torch.randn(fout, device="cuda")
+    before = gcn_spmm.spmm_fused.launches
+    # w[:fin] is the row slice a SAGE layer passes
+    u, z = gcn_spmm.spmm_fused(st["row_ptr"], st["live"], st["rows"],
+                               st["cols"], st["vals"], h, w[:fin], b, 300,
+                               relu=relu, with_z=with_z)
+    torch.cuda.synchronize()
+    pu, pz = gcn_spmm.spmm_fused_plain(st["rows"], st["cols"], st["vals"], h,
+                                       w[:fin], b, 300, relu=relu,
+                                       with_z=with_z)
+    assert gcn_spmm.spmm_fused.launches == before + 1
+    _close_to_scale(u, pu)
+    if with_z:
+        _close_to_scale(z, pz)
+    else:
+        assert z is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fin,fout", [(256, 256), (256, 16), (120, 24),
+                                      (512, 512)])
+def test_cuda_fused_t_kernel_matches_plain(fin, fout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    st = _card_streams(300, 1000, 2000)
+    parts = st["rows"].shape[0]
+    du = torch.randn(parts, 300, fout, device="cuda")
+    w = torch.randn(fin, fout, device="cuda") / fout ** 0.5
+    before = gcn_spmm.spmm_fused_t.launches
+    d = gcn_spmm.spmm_fused_t(st["col_ptr"], st["t_live"], st["t_out"],
+                              st["t_in"], st["t_perm"], st["vals"], du, w,
+                              1000)
+    torch.cuda.synchronize()
+    assert gcn_spmm.spmm_fused_t.launches == before + 1
+    _close_to_scale(d, gcn_spmm.spmm_fused_t_plain(
+        st["t_out"], st["t_in"], st["t_perm"], st["vals"], du, w, 1000))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_wrappers_refuse_what_the_kernels_do_not_take():
+    """float64, a non-contiguous (transposed) weight, F_in > 512."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    st = _card_streams(128, 256, 100, parts=1)
+    fwd = (st["row_ptr"], st["live"], st["rows"], st["cols"], st["vals"])
+    bwd = (st["col_ptr"], st["t_live"], st["t_out"], st["t_in"],
+           st["t_perm"], st["vals"])
+    h = torch.randn(1, 256, 8, device="cuda")
+    w = torch.randn(8, 8, device="cuda")
+    b = torch.zeros(8, device="cuda")
+    du = torch.randn(1, 128, 8, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        gcn_spmm.spmm_fused(*fwd, h.double(), w, b, 128)
+    with pytest.raises(TypeError, match="float32"):
+        gcn_spmm.spmm_fused(*fwd, h, w.double(), b.double(), 128)
+    with pytest.raises(TypeError, match="float32"):
+        gcn_spmm.spmm_fused_t(*bwd, du.double(), w, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        gcn_spmm.spmm_fused(*fwd, h, w.T, b, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        gcn_spmm.spmm_fused_t(*bwd, du, w.T, 256)
+    with pytest.raises(ValueError, match="512"):
+        gcn_spmm.spmm_fused(*fwd, torch.randn(1, 256, 520, device="cuda"),
+                            torch.randn(520, 8, device="cuda"), b, 128)

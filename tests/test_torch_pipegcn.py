@@ -184,5 +184,3 @@ def test_unported_options_raise():
                  PipeConfig(overlap="split-phase")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PipeGCN(mc, pipe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PipeGCN(ModelConfig(agg="fused"), PipeConfig())

@@ -110,6 +110,20 @@ def test_cli_trains_on_cpu(capsys):
     assert "matmul order (static FLOP model, agg=blocksparse)" in printed
 
 
+def test_cli_trains_fused_on_cpu(capsys):
+    """--agg fused runs on the CPU through the plain versions of the fused
+    kernels and logs the fused engine's train and eval orders."""
+    out = main(["--device", "cpu", "--dataset", "tiny", "--epochs", "2",
+                "--agg", "fused", "--matmul-order", "aggregate-first",
+                "--eval-every", "1"])
+    printed = capsys.readouterr().out
+    assert out["agg"] == "fused"
+    assert len(out["history"]["loss"]) == 2
+    assert all(math.isfinite(v) for v in out["history"]["loss"])
+    assert "matmul order (forced, agg=fused): L0:PH.W" in printed
+    assert "eval matmul order (forced, agg=fused)" in printed
+
+
 def test_cli_refuses_unported_flags(capsys):
     with pytest.raises(SystemExit) as err:
         main(["--device", "cpu", "--dataset", "tiny", "--wire", "bf16"])
