@@ -11,23 +11,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
              at the main paths' shapes (reddit-sim and yelp-sim, 4
              partitions, rcm layout; N(0,1) inputs) and time kernel, plain
              version and a yardstick with CUDA events:
-             - spmm / spmm_t at F = 128, 256, 16, assert_close(rtol=1e-5,
-               atol=1e-5); yardstick a library call (a block-sparse BSR
-               product where PyTorch runs it for f32, else a dense matmul
-               of the densified shard);
-             - spmm_fused at F_in→F_out 128→256 with z, 256→256 with and
-               without z (and with the ReLU epilogue), 120→512 with z and
-               512→512; spmm_fused_t at F_in←F_out 256←256, 256←16,
-               16←256 and 512←512; rtol=1e-5 and atol = 1e-5·max|plain|
-               (two chained f32 contractions, K up to 512); yardstick the
-               composed path: the port's spmm / spmm_t kernel plus
-               torch.matmul, the same function unfused.
+             - spmm / spmm_t at every width the main paths run them at
+               (reddit-sim F = 128, 256, 16; yelp-sim F = 120, 512, 24),
+               assert_close(rtol=1e-5, atol=1e-5); yardstick a library
+               call (a block-sparse BSR product where PyTorch runs it for
+               f32, else a dense matmul of the densified shard);
+             - spmm_fused at every shape the fused runs launch it at
+               (F_in→F_out, reddit-sim: 128→256, 256→256 and 256→16, each
+               with and without z, 128→256 and 256→256 also with the ReLU
+               epilogue; yelp-sim: 120→512 with and without z, 512→512);
+               spmm_fused_t at F_in←F_out 256←256, 256←16, 16←256 and
+               512←512; gcn_spmm.assert_close_to_scale (rtol=1e-5, atol =
+               1e-5·max|plain|: two chained f32 contractions, K up to
+               512); yardstick the composed path: the port's spmm /
+               spmm_t kernel plus torch.matmul, the same function unfused.
   3. steps   2 training steps at dropout 0 through the kernels and 2 through
-             the plain COO engine on the card, for agg=blocksparse (auto
-             order) and agg=fused (aggregate-first, which runs
-             spmm_fused_t, and auto), GraphSAGE, plus one GCN eval forward
-             through the fused kernels (in-kernel ReLU); loss, grads and
-             buffers agree to 1e-3 in relative Frobenius norm,
+             the plain COO engine on the card, at each dataset's full-width
+             GraphSAGE model: reddit-sim with agg=blocksparse (auto order)
+             and agg=fused (aggregate-first, which runs spmm_fused_t, and
+             auto), yelp-sim with agg=fused (auto); plus one reddit-sim GCN
+             eval forward through the fused kernels (in-kernel ReLU); loss,
+             grads and buffers agree to 1e-3 in relative Frobenius norm,
              ||a - b|| / ||b|| (f32 through 4 layers with other summation
              orders, and ReLU masks that may flip where a pre-activation
              lies within f32 rounding of 0: a flip moves a few elements by
@@ -154,8 +158,22 @@ def _library_call(topo, transpose: bool):
             in_rows)
 
 
-def phase_kernels(topo):
-    """Kernels vs plain versions at the main path's shapes; timings."""
+# graph -> the widths its main paths run spmm / spmm_t at: reddit-sim's
+# layer inputs and outputs 128, 256, 16; yelp-sim's 120, 512, 24
+SPMM_WIDTHS = {"reddit-sim": (128, 256, 16), "yelp-sim": (120, 512, 24)}
+
+
+def phase_kernels(topos):
+    """spmm / spmm_t vs plain versions at every width the main paths run
+    them at, on each graph's topology; timings."""
+    rows = {}
+    for graph, widths in SPMM_WIDTHS.items():
+        for name, row in _spmm_rows(topos[graph], graph, widths):
+            rows.setdefault(name, []).append(row)
+    return rows
+
+
+def _spmm_rows(topo, graph, widths):
     import torch
     from repro_torch.kernels import gcn_spmm
     P, n = topo.tile_rows.shape
@@ -165,8 +183,7 @@ def phase_kernels(topo):
     gen = torch.Generator(device="cuda").manual_seed(0)
     libs = {False: _library_call(topo, False), True: _library_call(topo, True)}
     full = torch.full((P,), n, dtype=torch.int32, device="cuda")
-    rows = {}
-    for f in (128, 256, 16):
+    for f in widths:
         h = torch.randn(P, C, f, device="cuda", generator=gen)
         dz = torch.randn(P, R, f, device="cuda", generator=gen)
         fwd = (lambda h=h: gcn_spmm.spmm(
@@ -206,7 +223,7 @@ def phase_kernels(topo):
             nbytes = (n_nz * 128 * 128 * 4 + P * in_rows * f * 4
                       + P * out_rows * f * 4)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-            row = dict(f=f, max_abs_err=err,
+            row = dict(graph=graph, f=f, max_abs_err=err,
                        ms=(ab[0] + ab[3]) / 2,
                        ms_full_stream=(ab[1] + ab[2]) / 2, ab_ms=ab,
                        plain_ms=cuda_time_ms(plain, 5),
@@ -216,15 +233,14 @@ def phase_kernels(topo):
                        bound_ms=1e3 * max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        gflop=flops / 1e9, mbytes=nbytes / 1e6)
-            rows.setdefault(name, []).append(row)
-            log(f"kernels: {name} F={f} max_abs_err {err:.3g} "
+            log(f"kernels: {name} {graph} F={f} max_abs_err {err:.3g} "
                 f"kernel {row['ms']:.4f} ms (full stream "
                 f"{row['ms_full_stream']:.4f} ms) plain {row['plain_ms']:.4f} ms "
                 f"{lib_name} {row['library_ms']:.4f} ms "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    log(f"kernels: {n_nz} nonzero 128x128 tiles over {P} partitions "
+            yield name, row
+    log(f"kernels: {graph} {n_nz} nonzero 128x128 tiles over {P} partitions "
         f"({n} stream slots each)")
-    return rows
 
 
 def _pad_rows(x, rows: int):
@@ -232,15 +248,6 @@ def _pad_rows(x, rows: int):
     import torch
     pad = rows - x.shape[1]
     return torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], 1) if pad else x
-
-
-def _close_to_scale(got, want, what) -> float:
-    """assert_close at rtol=1e-5, atol=1e-5·max|want|; returns max|got-want|."""
-    import torch
-    scale = float(want.abs().max()) or 1.0
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale,
-                               msg=lambda m: f"{what}: {m}")
-    return float((got - want).abs().max())
 
 
 def _timed_pair(kern, other, reps: int = 20):
@@ -257,11 +264,19 @@ def phase_fused_kernels(topos):
     from repro_torch.kernels.aggregate import get_engine
     composed = get_engine("blocksparse")     # spmm kernel + torch.matmul
     gen = torch.Generator(device="cuda").manual_seed(1)
+    # (graph, F_in, F_out, with_z, relu): every shape the fused runs of
+    # phases "steps" and "train" launch spmm_fused at (the GCN eval forward
+    # of phase "steps" at 128->256 and 256->256 with the ReLU epilogue)
     fwd_cases = [("reddit-sim", 128, 256, True, False),
+                 ("reddit-sim", 128, 256, False, False),
+                 ("reddit-sim", 128, 256, False, True),
                  ("reddit-sim", 256, 256, True, False),
                  ("reddit-sim", 256, 256, False, False),
                  ("reddit-sim", 256, 256, False, True),
+                 ("reddit-sim", 256, 16, True, False),
+                 ("reddit-sim", 256, 16, False, False),
                  ("yelp-sim", 120, 512, True, False),
+                 ("yelp-sim", 120, 512, False, False),
                  ("yelp-sim", 512, 512, False, False)]
     bwd_cases = [("reddit-sim", 256, 256), ("reddit-sim", 256, 16),
                  ("reddit-sim", 16, 256), ("yelp-sim", 512, 512)]
@@ -302,9 +317,11 @@ def phase_fused_kernels(topos):
                 composed.aggregate_transform(f, h, w, b, R, relu=r, with_z=z))
         (u, z), (pu, pz) = kern(), plain()
         torch.cuda.synchronize()
-        err = _close_to_scale(u, pu, f"spmm_fused {name} {fin}->{fout}")
+        err = gcn_spmm.assert_close_to_scale(
+            u, pu, f"spmm_fused {name} {fin}->{fout}")
         if with_z:
-            err = max(err, _close_to_scale(z, pz, f"spmm_fused z {name}"))
+            err = max(err, gcn_spmm.assert_close_to_scale(
+                z, pz, f"spmm_fused z {name} {fin}->{fout}"))
         ms, composed_ms = _timed_pair(kern, comp)
         flops = 2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout
         nbytes = 4.0 * (n_nz * 128 * 128 + P * C * fin + fin * fout + fout
@@ -325,7 +342,8 @@ def phase_fused_kernels(topos):
                 composed.aggregate_transform_t(f, du, w, C))
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = _close_to_scale(got, want, f"spmm_fused_t {name} {fin}<-{fout}")
+        err = gcn_spmm.assert_close_to_scale(
+            got, want, f"spmm_fused_t {name} {fin}<-{fout}")
         ms, composed_ms = _timed_pair(kern, comp)
         # the dense product du @ wᵀ counted once per row, as the composed
         # path does it (the kernel's per-slot prologue is its own cost)
@@ -350,26 +368,31 @@ def _rel_close(a, b, what, rel=1e-3):
     return diff / scale if scale else 0.0
 
 
-def phase_steps(pipeline):
+def phase_steps(reddit, yelp):
     """2 training steps through the kernels vs 2 through the COO engine,
-    for each tile engine and order; then a GCN eval forward through the
-    fused kernels (their in-kernel ReLU) vs the COO engine."""
+    each at its dataset's full-width model with dropout 0: reddit-sim for
+    each tile engine and order, yelp-sim for the fused engine under auto;
+    then a GCN eval forward through the fused kernels (their in-kernel
+    ReLU) vs the COO engine."""
+    import dataclasses
     import torch
-    from repro_torch.core import ModelConfig, PipeConfig, PipeGCN
-    ds = pipeline.dataset
+    from repro_torch.core import PipeConfig, PipeGCN
     worst = 0.0
 
-    def config(agg, order, kind="sage"):
-        return ModelConfig(kind=kind, feat_dim=ds.feat_dim, hidden=256,
-                           num_layers=4, num_classes=ds.num_classes,
-                           dropout=0.0, agg=agg, matmul_order=order)
+    def config(pipeline, agg, order, **kw):
+        mc, _ = _model_config(pipeline, agg, order)
+        return dataclasses.replace(mc, dropout=0.0, **kw)
 
-    params0 = PipeGCN(config("coo", "auto"), PipeConfig()).init_params(
-        torch.Generator(device="cuda").manual_seed(0))
-    for agg, order in (("blocksparse", "auto"), ("fused", "aggregate-first"),
-                       ("fused", "auto")):
-        models = {a: PipeGCN(config(a, order), PipeConfig.named("pipegcn"))
+    for pipeline, agg, order in ((reddit, "blocksparse", "auto"),
+                                 (reddit, "fused", "aggregate-first"),
+                                 (reddit, "fused", "auto"),
+                                 (yelp, "fused", "auto")):
+        ds = pipeline.dataset
+        models = {a: PipeGCN(config(pipeline, a, order),
+                             PipeConfig.named("pipegcn"))
                   for a in (agg, "coo")}
+        params0 = models["coo"].init_params(
+            torch.Generator(device="cuda").manual_seed(0))
         state = {a: (dict(params0), m.init_buffers(pipeline.topo))
                  for a, m in models.items()}
         diffs = []
@@ -384,7 +407,7 @@ def phase_steps(pipeline):
                             bufs)
             (lk, gk, bk, zk), (lp, gp, bp, zp) = out[agg], out["coo"]
             assert zk.shape == (4, pipeline.topo.max_inner, ds.num_classes)
-            what = f"{agg}/{order} step {t}"
+            what = f"{ds.name} {agg}/{order} step {t}"
             diffs.append(_rel_close(lk.reshape(1), lp.reshape(1),
                                     f"{what} loss"))
             diffs += [_rel_close(gk[k], gp[k], f"{what} grad {k}") for k in gp]
@@ -393,13 +416,15 @@ def phase_steps(pipeline):
                           for ell, (a, b) in enumerate(zip(bk[kind], bp[kind]))]
             log(f"steps: {what} loss kernels {float(lk):.6f} "
                 f"plain-coo {float(lp):.6f}")
-        log(f"steps: {agg}/{order} worst relative norm diff {max(diffs):.3g}")
+        log(f"steps: {ds.name} {agg}/{order} worst relative norm diff "
+            f"{max(diffs):.3g}")
         worst = max(worst, *diffs)
-    gcn = {a: PipeGCN(config(a, "aggregate-first", kind="gcn"), PipeConfig())
+    gcn = {a: PipeGCN(config(reddit, a, "aggregate-first", kind="gcn"),
+                      PipeConfig())
            for a in ("fused", "coo")}
     params = gcn["coo"].init_params(
         torch.Generator(device="cuda").manual_seed(0))
-    logits = {a: m.forward(pipeline.topo, params, pipeline.val_data)[1]
+    logits = {a: m.forward(reddit.topo, params, reddit.val_data)[1]
               for a, m in gcn.items()}
     worst = max(worst, _rel_close(logits["fused"], logits["coo"],
                                   "gcn eval forward logits"))
@@ -600,9 +625,11 @@ def phase_profile(pipeline, agg):
 # whose launch count it reports, the shape its times are given at)
 KERNEL_INFO = {
     "spmm": ("src/repro/kernels/gcn_spmm.py:110", "gcn_spmm.cu",
-             ("reddit-sim", "blocksparse", "auto"), dict(f=256)),
+             ("reddit-sim", "blocksparse", "auto"),
+             dict(graph="reddit-sim", f=256)),
     "spmm_t": ("src/repro/kernels/gcn_spmm.py:182", "gcn_spmm.cu",
-               ("reddit-sim", "blocksparse", "auto"), dict(f=256)),
+               ("reddit-sim", "blocksparse", "auto"),
+               dict(graph="reddit-sim", f=256)),
     "spmm_fused": ("src/repro/kernels/gcn_spmm.py:370", "gcn_fused.cu",
                    ("reddit-sim", "fused", "auto"),
                    dict(graph="reddit-sim", fin=128, fout=256)),
@@ -670,9 +697,9 @@ def main(argv) -> int:
             f"{topo.tile_rows.shape[1]} built in "
             f"{time.perf_counter() - t0:.2f} s")
     reddit, yelp = pipelines["reddit-sim"], pipelines["yelp-sim"]
-    rows = phase_kernels(reddit.topo)
+    rows = phase_kernels({k: p.topo for k, p in pipelines.items()})
     rows.update(phase_fused_kernels({k: p.topo for k, p in pipelines.items()}))
-    phase_steps(reddit)
+    phase_steps(reddit, yelp)
     runs = phase_train(reddit, yelp)
     phase_step_times(reddit, yelp)
     if "--profile" in argv:

@@ -122,17 +122,14 @@ class FusedBlockSparseEngine(BlockSparseEngine):
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
                             relu: bool = False, with_z: bool = True):
         row_ptr, live, rows, cols, vals = tslice[:5]
-        return gcn_spmm.spmm_fused(row_ptr, live, rows, cols, vals,
-                                   comb.contiguous(), w.contiguous(),
-                                   b.contiguous(), num_rows, relu=relu,
-                                   with_z=with_z)
+        return gcn_spmm.spmm_fused(row_ptr, live, rows, cols, vals, comb, w,
+                                   b, num_rows, relu=relu, with_z=with_z)
 
     def aggregate_transform_t(self, tslice, du, w, num_cols: int):
         vals = tslice[4]
         col_ptr, t_live, t_out, t_in, t_perm = tslice[5:]
         return gcn_spmm.spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm,
-                                     vals, du.contiguous(), w.contiguous(),
-                                     num_cols)
+                                     vals, du, w, num_cols)
 
 
 ENGINES = {e.name: e for e in (CooEngine(), BlockSparseEngine(),

@@ -110,6 +110,19 @@ def spmm_fused_t_plain(t_out, t_in, t_perm, vals, du, w,
     return spmm_t_plain(t_out, t_in, t_perm, vals, du @ w.T, num_cols)
 
 
+def assert_close_to_scale(got, want, what: str = "") -> float:
+    """The tolerance a fused kernel is held to against its plain version:
+    rtol = 1e-5 and atol = 1e-5 · max|want|. Two chained f32 contractions
+    (a tile run, then K ≤ 512 of the dense product) round differently from
+    the plain version, so the bound scales with the output's magnitude:
+    ~170 ulp of the largest element, far below what a wrong tile or column
+    slice moves. Returns max|got - want|."""
+    scale = float(want.abs().max()) or 1.0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale,
+                               msg=lambda m: f"{what}: {m}" if what else m)
+    return float((got - want).abs().max())
+
+
 # ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------

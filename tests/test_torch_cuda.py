@@ -91,15 +91,6 @@ def _card_streams(rows, cols, nnz, parts=3):
     return st
 
 
-def _close_to_scale(got, want):
-    """Two chained f32 contractions (a tile run, then K ≤ 512 of the dense
-    product) round differently from the plain version; the bound is scaled
-    to the output's magnitude: 1e-5 · max|want| is ~170 ulp of the largest
-    element, far below what a wrong tile or column slice moves."""
-    scale = float(want.abs().max()) or 1.0
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("fin,fout", [(128, 256), (256, 16), (120, 24),
                                       (512, 512)])
@@ -124,9 +115,9 @@ def test_cuda_fused_kernel_matches_plain(fin, fout, relu, with_z):
                                        w[:fin], b, 300, relu=relu,
                                        with_z=with_z)
     assert gcn_spmm.spmm_fused.launches == before + 1
-    _close_to_scale(u, pu)
+    gcn_spmm.assert_close_to_scale(u, pu)
     if with_z:
-        _close_to_scale(z, pz)
+        gcn_spmm.assert_close_to_scale(z, pz)
     else:
         assert z is None
 
@@ -147,7 +138,7 @@ def test_cuda_fused_t_kernel_matches_plain(fin, fout):
                               1000)
     torch.cuda.synchronize()
     assert gcn_spmm.spmm_fused_t.launches == before + 1
-    _close_to_scale(d, gcn_spmm.spmm_fused_t_plain(
+    gcn_spmm.assert_close_to_scale(d, gcn_spmm.spmm_fused_t_plain(
         st["t_out"], st["t_in"], st["t_perm"], st["vals"], du, w, 1000))
 
 

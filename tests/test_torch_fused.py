@@ -275,6 +275,43 @@ def test_gcn_eval_relu_runs_in_the_kernel(monkeypatch):
         assert seen == want, kind
 
 
+@pytest.mark.parametrize("kind", ["sage", "gcn"])
+def test_fused_engine_hands_the_kernels_contiguous_operands(kind, monkeypatch):
+    """The CUDA wrappers refuse strided operands rather than copy them; the
+    engine's operands on the training and eval path (SAGE's row slice
+    w[:fin], dropout-masked inputs, the backward's du) are contiguous."""
+    tp = GraphDataPipeline.build("tiny", 2, kind=kind, agg="fused",
+                                 device="cpu")
+    ds = tp.dataset
+    seen = []
+    real_fwd, real_t = gcn_spmm.spmm_fused, gcn_spmm.spmm_fused_t
+
+    def fwd(row_ptr, live, rows, cols, vals, h, w, b, num_rows, **kw):
+        seen.append(("fwd", [t.is_contiguous() for t in (h, w, b)]))
+        return real_fwd(row_ptr, live, rows, cols, vals, h, w, b, num_rows,
+                        **kw)
+
+    def bwd(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w, num_cols):
+        seen.append(("bwd", [t.is_contiguous() for t in (du, w)]))
+        return real_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
+                      num_cols)
+
+    monkeypatch.setattr(gcn_spmm, "spmm_fused", fwd)
+    monkeypatch.setattr(gcn_spmm, "spmm_fused_t", bwd)
+    model = PipeGCN(ModelConfig(kind=kind, feat_dim=ds.feat_dim, hidden=8,
+                                num_layers=3, num_classes=ds.num_classes,
+                                dropout=0.5, agg="fused",
+                                matmul_order="aggregate-first"),
+                    PipeConfig.named("pipegcn"))
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(gen)
+    model.train_step(tp.topo, params, model.init_buffers(tp.topo),
+                     tp.train_data, gen)
+    model.forward(tp.topo, params, tp.val_data)
+    assert [k for k, _ in seen] == ["fwd"] * 3 + ["bwd"] * 2 + ["fwd"] * 3
+    assert all(all(c) for _, c in seen), seen
+
+
 # ---------------------------------------------------------------------
 # (d) layer orders
 # ---------------------------------------------------------------------
