@@ -9,7 +9,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              (one nvcc per source, started together) and print the time.
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes (reddit-sim and yelp-sim, 4
-             partitions, rcm layout; N(0,1) inputs) and time kernel, plain
+             partitions; yelp-sim 2 and grid-sim 4 partitions for the
+             split; rcm layout; N(0,1) inputs) and time kernel, plain
              version and a yardstick with CUDA events:
              - spmm / spmm_t at every width the main paths run them at
                (reddit-sim F = 128, 256, 16; yelp-sim F = 120, 512, 24),
@@ -24,7 +25,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                512←512; gcn_spmm.assert_close_to_scale (rtol=1e-5, atol =
                1e-5·max|plain|: two chained f32 contractions, K up to
                512); yardstick the composed path: the port's spmm /
-               spmm_t kernel plus torch.matmul, the same function unfused.
+               spmm_t kernel plus torch.matmul, the same function unfused;
+             - spmm_phased / spmm_t_phased, both phases, at every width the
+               split paths launch them at (yelp-sim P=2 and grid-sim P=4),
+               in-phase rows within rtol = atol = 1e-5 of the plain phased
+               versions, launched into a NaN output (every in-phase row
+               finite, every other row still NaN), boundary + interior
+               bit-equal to the unsplit kernel; times per phase beside the
+               unsplit kernel's; yardstick the BSR product of each phase's
+               tiles.
   3. steps   2 training steps at dropout 0 through the kernels and 2 through
              the plain COO engine on the card, at each dataset's full-width
              GraphSAGE model: reddit-sim with agg=blocksparse (auto order)
@@ -37,7 +46,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
              lies within f32 rounding of 0: a flip moves a few elements by
              a discrete amount, so an elementwise bound would fail on
              correct code; a wrong tile moves the norm by far more).
-  4. train   the main paths: GraphDataPipeline.build + train_pipegcn for 5
+  4. split   the split-phase step at full width, 2 steps at dropout 0 on
+             yelp-sim P=2 (GraphSAGE, feat 120, hidden 512, 4 layers, BCE)
+             and grid-sim P=4 (feat 32, hidden 64, 3 layers): the
+             blocksparse split bit-equal to the unsplit step, fused/auto
+             (the composed phased path) bit-equal to the blocksparse
+             split, exact launch counts.
+  5. spmd    the torch.distributed backend with NCCL at world size 1, the 4
+             grid-sim partitions co-resident (hierarchical exchange,
+             n_dev = 1), unsplit and split, 2 steps each against the sim
+             backend (bitwise, else within 1e-6 relative norm, printed),
+             and 3 epochs of train_pipegcn on it against the sim trainer.
+  6. train   the main paths: GraphDataPipeline.build + train_pipegcn for 5
              epochs each, at full width:
              - reddit-sim (4 partitions, GraphSAGE, feat 128, hidden 256, 4
                layers, 16 classes, variant pipegcn, dropout 0.5), with
@@ -45,13 +65,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
                aggregate-first;
              - yelp-sim (4 partitions, GraphSAGE, feat 120, hidden 512, 4
                layers, 24 classes multilabel BCE, F1 metric, dropout 0.1),
-               agg=fused / auto.
+               agg=fused / auto;
+             - the split: yelp-sim P=2 with agg=blocksparse / auto and
+               agg=fused / auto, grid-sim P=4 with agg=blocksparse / auto.
              Every kernel's launch count is zeroed just before each run and
              read just after; the counts must equal those the run's layer
              orders imply (see expected_launches).
-  5. step    median train-step time (device sync after each step) of
+  7. step    median train-step time (device sync after each step) of
              reddit-sim and yelp-sim with agg=blocksparse and agg=fused
-             (auto order), timed in turns within this run.
+             (auto order), and of yelp-sim P=2 and grid-sim P=4 unsplit
+             and split, timed in turns within this run.
+  8. overlap torch.profiler trace of 3 split steps per split graph: the
+             share of the side-stream exchange copies' device time that
+             lies inside the interior-phase kernel on the compute stream
+             (the traces are kept under build/traces/).
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last the {"ok": true, "device": {...}} line.
 """
@@ -105,16 +132,19 @@ def phase_build():
                 log(f"  {line.strip()}")
 
 
-def _bsr_operand(topo, transpose: bool):
-    """Block-diagonal BSR matrix of all partitions' nonzero tiles (P or Pᵀ),
-    the same as dense (P, out, in) shards, and the padded input rows of
-    one partition."""
+def _bsr_operand(topo, transpose: bool, only=None):
+    """Block-diagonal BSR matrix of all partitions' nonzero tiles (P or Pᵀ;
+    those of the (P, n) mask `only` over the value array when given), the
+    same as dense (P, out, in) shards, and the padded input rows of one
+    partition."""
     import torch
     P, n = topo.tile_rows.shape
     nrb = topo.tile_row_ptr.shape[1] - 1
     ncb = topo.tile_col_ptr.shape[1] - 1
     vals = topo.tile_vals
     keep = vals.abs().amax(dim=(-1, -2)) > 0
+    if only is not None:
+        keep = keep & only
     part = torch.arange(P, device=vals.device)[:, None].expand(P, n)
     r = topo.tile_rows.long() + nrb * part
     c = topo.tile_cols.long() + ncb * part
@@ -138,13 +168,14 @@ def _bsr_operand(topo, transpose: bool):
     return bsr, dense, ncols // P * 128
 
 
-def _library_call(topo, transpose: bool):
-    """One PyTorch call that computes the same product on a padded input:
-    the BSR sparse product where it runs for f32 on this card, else the
-    dense batched matmul of the densified shards. Returns (name, fn(x_pad))
-    where x_pad is (P, in_rows, F) with in_rows the padded input rows."""
+def _library_call(topo, transpose: bool, only=None):
+    """One PyTorch call that computes the same product (of the tiles in
+    `only`, see _bsr_operand) on a padded input: the BSR sparse product
+    where it runs for f32 on this card, else the dense batched matmul of
+    the densified shards. Returns (name, fn(x_pad), in_rows) where x_pad
+    is (P, in_rows, F) with in_rows the padded input rows."""
     import torch
-    bsr, dense, in_rows = _bsr_operand(topo, transpose)
+    bsr, dense, in_rows = _bsr_operand(topo, transpose, only)
     probe = torch.zeros(dense.shape[0] * in_rows, 16, device=dense.device)
     try:
         # The yardstick is chosen here, not a phase result: a PyTorch
@@ -433,26 +464,46 @@ def phase_steps(reddit, yelp):
     return worst
 
 
-KERNELS = ("spmm", "spmm_t", "spmm_fused", "spmm_fused_t")
+KERNELS = ("spmm", "spmm_t", "spmm_fused", "spmm_fused_t", "spmm_phased",
+           "spmm_t_phased")
 
 
 def expected_launches(model, topo, steps: int, evals: int) -> dict:
     """Kernel launches a run of `steps` train steps and `evals` eval
-    forwards implies, from its layer orders. A transform-first layer runs
-    spmm forward and spmm_t backward (layer 0 too: its weight gradient
-    needs Pᵀ·du). An aggregate-first layer runs spmm_fused (fused engine)
-    or spmm (blocksparse) forward, and spmm_fused_t or spmm_t backward
-    except at layer 0, where Alg. 1 stops the backward."""
+    forwards implies, from its layer orders. Unsplit: a transform-first
+    layer runs spmm forward and spmm_t backward (layer 0 too: its weight
+    gradient needs Pᵀ·du); an aggregate-first layer runs spmm_fused (fused
+    engine) or spmm (blocksparse) forward, and spmm_fused_t or spmm_t
+    backward except at layer 0, where Alg. 1 stops the backward. Split:
+    every layer runs spmm_phased twice (boundary, interior) forward and
+    spmm_t_phased twice backward from layer 1 on, layer 0 the unphased
+    spmm_t where it is transform-first; the eval forward (vanilla, "auto"
+    overlap) splits likewise."""
+    import dataclasses
+    from repro_torch.core import PipeConfig
     fused = model.model.agg == "fused"
     n = dict.fromkeys(KERNELS, 0)
-    for ell, order in enumerate(model.layer_orders(topo, train=True)):
+    split = model._split_active() is not None
+    for ell, order in enumerate(model.step_orders(topo, train=True)):
         tf = order == "transform-first"
+        if split:
+            n["spmm_phased"] += 2 * steps
+            if ell > 0:
+                n["spmm_t_phased"] += 2 * steps
+            elif tf:
+                n["spmm_t"] += steps
+            continue
         n["spmm" if tf or not fused else "spmm_fused"] += steps
         if tf or ell > 0:
             n["spmm_t" if tf or not fused else "spmm_fused_t"] += steps
-    for order in model.layer_orders(topo, train=False):
+    evaluator = dataclasses.replace(model, pipe=PipeConfig.vanilla())
+    split = evaluator._split_active() is not None
+    for order in evaluator.step_orders(topo, train=False):
         tf = order == "transform-first"
-        n["spmm" if tf or not fused else "spmm_fused"] += evals
+        if split:
+            n["spmm_phased"] += 2 * evals
+        else:
+            n["spmm" if tf or not fused else "spmm_fused"] += evals
     return n
 
 
@@ -470,40 +521,59 @@ def _model_config(pipeline, agg, order):
                        layout=pipeline.layout), tpl["lr"]
 
 
+def graph_name(pipeline) -> str:
+    """The graph and its partition count, e.g. "yelp-sim P=2"."""
+    return f"{pipeline.dataset.name} P={pipeline.topo.num_parts}"
+
+
 def train_run(pipeline, agg, order):
     """One main path: train_pipegcn for EPOCHS epochs, with every launch
     count zeroed just before and read just after; the counts must equal
     expected_launches."""
     from repro_torch.core import PipeConfig, PipeGCN, train_pipegcn
+    from repro_torch.core.pipegcn import SimBackend
+    from repro_torch.core.trace_utils import expected_boundary_collectives
     from repro_torch.kernels import gcn_spmm
-    name = pipeline.dataset.name
+    name = graph_name(pipeline)
     mc, lr = _model_config(pipeline, agg, order)
     for k in KERNELS:
         getattr(gcn_spmm, k).launches = 0
+    SimBackend.side_copies = 0
     res = train_pipegcn(pipeline, mc, PipeConfig.named("pipegcn"),
                         epochs=EPOCHS, lr=lr, seed=0, eval_every=EVAL_EVERY,
                         log=lambda s: log(f"train {name} {agg}/{order}: {s}"),
                         device="cuda")
     launches = {k: getattr(gcn_spmm, k).launches for k in KERNELS}
-    model = PipeGCN(mc, PipeConfig.named("pipegcn"))
+    copies = SimBackend.side_copies
+    model = PipeGCN(mc, PipeConfig.named("pipegcn"),
+                    split=pipeline.split_spec())
     n_eval = len(res.history["epoch"])
     expect = expected_launches(model, pipeline.topo, EPOCHS, n_eval)
     assert all(math.isfinite(v) for v in res.history["loss"]), res.history
     assert launches == expect, (name, agg, order, launches, expect)
+    # the split starts every exchange on the side stream: 2 per fused
+    # train step, L per (vanilla) eval forward; the unsplit step none
+    L = mc.num_layers
+    want = (EPOCHS * expected_boundary_collectives(L, True) + n_eval * L
+            if model._split_active() is not None else 0)
+    assert copies == want, (name, agg, order, copies, want)
+    launches["side_stream_copies"] = copies
     log(f"train {name} {agg}/{order}: loss {res.history['loss'][-1]:.4f} "
         f"val {res.final_metrics['val']:.4f} epochs/s "
         f"{res.epochs_per_sec:.3f} launches {launches} ({EPOCHS} steps, "
         f"{n_eval} evals)")
     return dict(graph=name, agg=agg, order=order,
-                orders_train=model.layer_orders(pipeline.topo, train=True),
+                orders_train=model.step_orders(pipeline.topo, train=True),
                 orders_eval=model.layer_orders(pipeline.topo, train=False),
                 loss=res.history["loss"][-1], val=res.final_metrics["val"],
                 epochs_per_sec=res.epochs_per_sec, launches=launches,
                 steps=EPOCHS, evals=n_eval)
 
 
-def phase_train(reddit, yelp):
-    """The main paths of both slices, each with its own launch counts."""
+def phase_train(reddit, yelp, split_pipes):
+    """The main paths of every slice, each with its own launch counts: the
+    unsplit reddit-sim and yelp-sim P=4 runs, and the split runs on the
+    graphs where a split exists."""
     runs = {}
     mc, _ = _model_config(reddit, "blocksparse", "auto")
     assert (mc.feat_dim, mc.hidden, mc.num_layers, mc.num_classes,
@@ -511,17 +581,28 @@ def phase_train(reddit, yelp):
     mc, _ = _model_config(yelp, "fused", "auto")
     assert (mc.feat_dim, mc.hidden, mc.num_layers, mc.num_classes,
             mc.dropout, mc.multilabel) == (120, 512, 4, 24, 0.1, True)
+    yelp2, grid = split_pipes
+    mc, _ = _model_config(grid, "blocksparse", "auto")
+    assert (mc.feat_dim, mc.hidden, mc.num_layers, mc.num_classes,
+            mc.dropout) == (32, 64, 3, 4, 0.2)
     for pipeline, agg, order in ((reddit, "blocksparse", "auto"),
                                  (reddit, "fused", "auto"),
                                  (reddit, "fused", "aggregate-first"),
-                                 (yelp, "fused", "auto")):
-        runs[pipeline.dataset.name, agg, order] = train_run(pipeline, agg,
-                                                            order)
+                                 (yelp, "fused", "auto"),
+                                 (yelp2, "blocksparse", "auto"),
+                                 (yelp2, "fused", "auto"),
+                                 (grid, "blocksparse", "auto")):
+        runs[graph_name(pipeline), agg, order] = train_run(pipeline, agg,
+                                                           order)
+    for key in runs:
+        split = key[0] in {graph_name(p) for p in split_pipes}
+        phased = runs[key]["launches"]["spmm_phased"]
+        assert (phased > 0) == split, (key, runs[key]["launches"])
     # reddit-sim under auto: pricing the fused kernels moves training
     # layers 1-2 to transform-first, so a step runs 1 spmm_fused + 3 spmm
     # + 3 spmm_t and an eval 3 spmm_fused + 1 spmm
     a, t = "aggregate-first", "transform-first"
-    r = runs["reddit-sim", "fused", "auto"]
+    r = runs["reddit-sim P=4", "fused", "auto"]
     assert r["orders_train"] == (a, t, t, t), r["orders_train"]
     assert r["orders_eval"] == (a, a, a, t), r["orders_eval"]
     return runs
@@ -625,17 +706,23 @@ def phase_profile(pipeline, agg):
 # whose launch count it reports, the shape its times are given at)
 KERNEL_INFO = {
     "spmm": ("src/repro/kernels/gcn_spmm.py:110", "gcn_spmm.cu",
-             ("reddit-sim", "blocksparse", "auto"),
+             ("reddit-sim P=4", "blocksparse", "auto"),
              dict(graph="reddit-sim", f=256)),
     "spmm_t": ("src/repro/kernels/gcn_spmm.py:182", "gcn_spmm.cu",
-               ("reddit-sim", "blocksparse", "auto"),
+               ("reddit-sim P=4", "blocksparse", "auto"),
                dict(graph="reddit-sim", f=256)),
     "spmm_fused": ("src/repro/kernels/gcn_spmm.py:370", "gcn_fused.cu",
-                   ("reddit-sim", "fused", "auto"),
+                   ("reddit-sim P=4", "fused", "auto"),
                    dict(graph="reddit-sim", fin=128, fout=256)),
     "spmm_fused_t": ("src/repro/kernels/gcn_spmm.py:458", "gcn_fused.cu",
-                     ("reddit-sim", "fused", "aggregate-first"),
+                     ("reddit-sim P=4", "fused", "aggregate-first"),
                      dict(graph="reddit-sim", fin=256, fout=256)),
+    "spmm_phased": ("src/repro/kernels/gcn_spmm.py:245", "gcn_spmm.cu",
+                    ("yelp-sim P=2", "blocksparse", "auto"),
+                    dict(graph="yelp-sim P=2", f=512)),
+    "spmm_t_phased": ("src/repro/kernels/gcn_spmm.py:267", "gcn_spmm.cu",
+                      ("yelp-sim P=2", "blocksparse", "auto"),
+                      dict(graph="yelp-sim P=2", f=512)),
 }
 
 
@@ -661,7 +748,453 @@ def kernel_entry(name, rows, runs) -> dict:
         entry["library"] = main_row["library"]
     else:   # no single PyTorch call computes the fused function
         entry["composed_ms"] = main_row["composed_ms"]
+    for k in ("boundary_ms", "interior_ms", "unsplit_ms"):   # phased pair
+        if k in main_row:
+            entry[k] = main_row[k]
     return entry
+
+
+# ---------------------------------------------------------------------
+# The split-phase slice: phased kernels, split steps, the NCCL backend,
+# step times and the overlap on the card
+# ---------------------------------------------------------------------
+
+SPLIT_GRAPHS = (("yelp-sim", 2), ("grid-sim", 4))   # where a split exists
+
+
+def split_model(pipeline, agg, overlap="auto", dropout=None, **pipe_kw):
+    """The graph's published model (full width), split spec attached."""
+    import dataclasses
+    from repro_torch.core import PipeConfig, PipeGCN
+    mc, lr = _model_config(pipeline, agg, "auto")
+    if dropout is not None:
+        mc = dataclasses.replace(mc, dropout=dropout)
+    pc = dataclasses.replace(PipeConfig.named("pipegcn"), overlap=overlap,
+                             **pipe_kw)
+    return PipeGCN(mc, pc, split=pipeline.split_spec()), lr
+
+
+def phased_widths(model, topo) -> dict:
+    """kernel -> the widths the split main path launches it at: forward
+    phases at F_in (aggregate-first) or F_out (transform-first) of every
+    layer, in training and at eval; transpose phases likewise from layer 1
+    on."""
+    import dataclasses
+    from repro_torch.core import PipeConfig
+    dims = model.model.layer_dims()
+    evaluator = dataclasses.replace(model, pipe=PipeConfig.vanilla())
+    out = {"spmm_phased": set(), "spmm_t_phased": set()}
+    for m, train in ((model, True), (evaluator, False)):
+        for ell, o in enumerate(m.step_orders(topo, train=train)):
+            f = dims[ell][0] if o == "aggregate-first" else dims[ell][1]
+            out["spmm_phased"].add(f)
+            if train and ell > 0:
+                out["spmm_t_phased"].add(f)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _phase_stats(topo, slots, in_idx, transpose):
+    """Nonzero tiles of a phase (stream slots `slots`) and the distinct
+    input blocks they read, summed over partitions."""
+    import torch
+    vals = topo.tile_vals
+    nz = vals.abs().amax(dim=(-1, -2)) > 0          # (P, n) by vals index
+    if transpose:
+        nz = torch.gather(nz, 1, topo.tile_t_perm.long())
+    nz = nz[:, slots]
+    idx = in_idx[:, slots]
+    n_in = sum(len(set(idx[p][nz[p]].tolist())) for p in range(nz.shape[0]))
+    return int(nz.sum()), n_in
+
+
+def phase_phased_kernels(split_pipes):
+    """spmm_phased / spmm_t_phased vs their plain versions at every width
+    the split main paths launch them at, both phases: in-phase rows within
+    rtol = atol = 1e-5, every in-phase row written (the output is NaN
+    before the launch) and no other row (still NaN after it), boundary +
+    interior reassembled bit-equal to the unsplit kernel. Times: each
+    phase, the unsplit kernel on all the blocks, the plain phased pair,
+    and the BSR library product of each phase's tiles."""
+    import torch
+    from repro_torch.kernels import gcn_spmm
+    rows = {"spmm_phased": [], "spmm_t_phased": []}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for pipeline in split_pipes:
+        topo, sp = pipeline.topo, pipeline.split_spec()
+        model, _ = split_model(pipeline, "blocksparse")
+        widths = phased_widths(model, topo)
+        P, n = topo.tile_rows.shape
+        R, C = topo.max_inner, topo.max_inner + topo.halo_size
+        fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+               topo.tile_cols, topo.tile_vals)
+        bwd = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+               topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
+        libs = {tr: {ph: _library_call(topo, tr, _phase_keep(topo, sp, tr, ph))
+                     for ph in ("boundary", "interior")}
+                for tr in (False, True)}
+        for kernel, transpose, f_list in (
+                ("spmm_phased", False, widths["spmm_phased"]),
+                ("spmm_t_phased", True, widths["spmm_t_phased"])):
+            tail = sp.col_tail if transpose else sp.row_tail
+            out_rows, in_rows = (C, R) if transpose else (R, C)
+            n_bnd = sp.t_bnd_tiles if transpose else sp.fwd_bnd_tiles
+            for f in f_list:
+                x = torch.randn(P, in_rows, f, device="cuda", generator=gen)
+                if transpose:
+                    def run(ph, out=None, x=x):
+                        return gcn_spmm.spmm_t_phased(*bwd, x, C, sp, ph,
+                                                      out=out)
+
+                    def plain(ph, x=x):
+                        return gcn_spmm.spmm_t_phased_plain(
+                            *bwd[2:], x, C, sp, ph)
+                    full = lambda x=x: gcn_spmm.spmm_t(*bwd, x, C)  # noqa: E731
+                else:
+                    def run(ph, out=None, x=x):
+                        return gcn_spmm.spmm_phased(*fwd, x, R, sp, ph,
+                                                    out=out)
+
+                    def plain(ph, x=x):
+                        return gcn_spmm.spmm_phased_plain(
+                            *fwd[2:], x, R, sp, ph)
+                    full = lambda x=x: gcn_spmm.spmm(*fwd, x, R)  # noqa: E731
+                got, err = {}, 0.0
+                for ph in ("boundary", "interior"):
+                    sel = slice(tail, None) if ph == "boundary" else slice(0, tail)
+                    rest = slice(0, tail) if ph == "boundary" else slice(tail, None)
+                    out = torch.full((P, out_rows, f), float("nan"),
+                                     device="cuda")
+                    got[ph] = run(ph, out=out)
+                    want = plain(ph)
+                    torch.cuda.synchronize()
+                    assert got[ph].data_ptr() == out.data_ptr()
+                    assert torch.isfinite(got[ph][:, sel]).all(), (kernel, ph, f)
+                    assert torch.isnan(got[ph][:, rest]).all(), (kernel, ph, f)
+                    torch.testing.assert_close(got[ph][:, sel], want[:, sel],
+                                               rtol=1e-5, atol=1e-5)
+                    err = max(err, float((got[ph][:, sel] - want[:, sel])
+                                         .abs().max()))
+                whole = torch.cat([got["interior"][:, :tail],
+                                   got["boundary"][:, tail:]], dim=1)
+                assert torch.equal(whole, full()), (kernel, f, "reassembly")
+                t = [cuda_time_ms(fn, 20) for fn in (
+                    lambda: run("boundary"), lambda: run("interior"), full,
+                    full, lambda: run("interior"), lambda: run("boundary"))]
+                bnd_ms, int_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2
+                flops = nbytes = 0.0
+                runs = {}
+                ptr = (topo.tile_col_ptr if transpose
+                       else topo.tile_row_ptr).cpu()
+                for ph in ("boundary", "interior"):
+                    slots = gcn_spmm.phase_slots(n, n_bnd, ph)
+                    in_idx = topo.tile_t_in if transpose else topo.tile_cols
+                    n_nz, n_in = _phase_stats(topo, slots, in_idx, transpose)
+                    ph_rows = (out_rows - tail) if ph == "boundary" else tail
+                    flops += 2.0 * n_nz * 128 * 128 * f
+                    nbytes += 4.0 * (n_nz * 128 * 128
+                                     + min(n_in * 128, in_rows * P) * f
+                                     + P * ph_rows * f)
+                    # the longest run one block walks (zero pads included)
+                    # and the phase's zero slots, over all partitions
+                    lo, hi = gcn_spmm.phase_blocks(tail, out_rows, ph)
+                    runs[ph] = dict(
+                        longest_run=int((ptr[:, lo + 1:hi + 1]
+                                         - ptr[:, lo:hi]).max()),
+                        zero_slots=(slots.stop - slots.start) * P - n_nz)
+                t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+                lib_in = _pad_rows(x, libs[transpose]["boundary"][2])
+                lib_ms = sum(cuda_time_ms(lambda fn=libs[transpose][ph][1]:
+                                          fn(lib_in), 10)
+                             for ph in ("boundary", "interior"))
+                row = dict(graph=graph_name(pipeline), f=f, max_abs_err=err,
+                           ms=bnd_ms + int_ms, boundary_ms=bnd_ms,
+                           interior_ms=int_ms, unsplit_ms=(t[2] + t[3]) / 2,
+                           plain_ms=cuda_time_ms(
+                               lambda: (plain("boundary"), plain("interior")), 5),
+                           library=libs[transpose]["boundary"][0],
+                           library_ms=lib_ms,
+                           bound_ms=1e3 * max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes else "bytes",
+                           gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                           runs=runs)
+                rows[kernel].append(row)
+                log(f"kernels: {kernel} {row['graph']} F={f} max_abs_err "
+                    f"{err:.3g} boundary {bnd_ms:.4f} ms interior "
+                    f"{int_ms:.4f} ms (pair {row['ms']:.4f}) unsplit "
+                    f"{row['unsplit_ms']:.4f} ms plain {row['plain_ms']:.4f} "
+                    f"ms {row['library']} {lib_ms:.4f} ms bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}); runs "
+                    f"{json.dumps(runs)}; phases reassemble bit-equal, "
+                    "out-of-phase rows untouched")
+    return rows
+
+
+def _phase_keep(topo, sp, transpose, phase):
+    """(P, n) mask over the value array of the tiles a phase contracts."""
+    import torch
+    from repro_torch.kernels import gcn_spmm
+    P, n = topo.tile_rows.shape
+    n_bnd = sp.t_bnd_tiles if transpose else sp.fwd_bnd_tiles
+    slots = torch.zeros(P, n, dtype=torch.bool, device=topo.tile_rows.device)
+    slots[:, gcn_spmm.phase_slots(n, n_bnd, phase)] = True
+    if not transpose:
+        return slots
+    keep = torch.zeros_like(slots)
+    keep.scatter_(1, topo.tile_t_perm.long(), slots)
+    return keep
+
+
+def _steps(model, pipeline, n, backend=None, topo=None, data=None):
+    """n training steps at dropout 0 from the seed-0 parameters, plain SGD
+    between them; returns [(loss, grads, buffers, logits)]."""
+    import torch
+    topo = pipeline.topo if topo is None else topo
+    data = pipeline.train_data if data is None else data
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    bufs = model.init_buffers(topo)
+    out = []
+    for _ in range(n):
+        loss, grads, bufs, logits = model.train_step(
+            topo, params, bufs, data, backend=backend)
+        out.append((loss, grads, bufs, logits))
+        params = {k: params[k] - 0.01 * grads[k] for k in params}
+    return out
+
+
+def _bit_equal(a, b, what):
+    """Bitwise equality of two step results (nested tuples/dicts)."""
+    import torch
+    if isinstance(a, dict):
+        for k in a:
+            _bit_equal(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _bit_equal(x, y, f"{what}[{i}]")
+    else:
+        assert torch.isfinite(a).all(), f"{what}: non-finite values"
+        assert torch.equal(a, b), f"{what}: not bit-equal"
+
+
+def phase_split(split_pipes):
+    """The split step at full width, 2 steps at dropout 0 per graph:
+    blocksparse split (overlap auto) bit-equal to blocksparse unsplit
+    (overlap none); fused/auto split (the composed phased path) bit-equal
+    to the blocksparse split; exact launch counts of each split run."""
+    from repro_torch.kernels import gcn_spmm
+    for pipeline in split_pipes:
+        name = graph_name(pipeline)
+        unsplit, _ = split_model(pipeline, "blocksparse", "none", dropout=0.0)
+        ref = _steps(unsplit, pipeline, 2)
+        results = {}
+        for agg in ("blocksparse", "fused"):
+            model, _ = split_model(pipeline, agg, "auto", dropout=0.0)
+            assert model._split_active() is not None, (name, agg)
+            for k in KERNELS:
+                getattr(gcn_spmm, k).launches = 0
+            results[agg] = _steps(model, pipeline, 2)
+            launches = {k: getattr(gcn_spmm, k).launches for k in KERNELS}
+            expect = expected_launches(model, pipeline.topo, 2, 0)
+            assert launches == expect, (name, agg, launches, expect)
+            log(f"split: {name} {agg}/auto 2 steps, launches {launches}, "
+                f"orders {model.step_orders(pipeline.topo)}")
+        _bit_equal(results["blocksparse"], ref, f"{name} split vs unsplit")
+        _bit_equal(results["fused"], results["blocksparse"],
+                   f"{name} fused/auto split vs blocksparse split")
+        log(f"split: {name} blocksparse split == unsplit bitwise, fused/auto "
+            f"split == blocksparse split bitwise (loss "
+            f"{float(ref[-1][0]):.6f})")
+
+
+def phase_spmd(pipeline):
+    """The torch.distributed backend with NCCL at world size 1, the 4
+    partitions of grid-sim co-resident (the hierarchical exchange with
+    n_dev = 1), unsplit and split, 2 steps each against the sim backend;
+    then train_pipegcn on it against the sim trainer. Fails if NCCL does
+    not initialise."""
+    import dataclasses
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import PipeConfig, train_pipegcn
+    from repro_torch.core.pipegcn import SpmdBackend
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        P = pipeline.topo.num_parts
+        worst = 0.0
+        for overlap in ("none", "auto"):
+            model, lr = split_model(pipeline, "blocksparse", overlap,
+                                    dropout=0.0)
+            sim = _steps(model, pipeline, 2)
+            spmd = _steps(model, pipeline, 2, backend=SpmdBackend(P))
+            try:
+                _bit_equal(spmd, sim, f"spmd {overlap}")
+                how = "bitwise"
+            except AssertionError:
+                for (a, b) in zip(spmd, sim):
+                    for x, y in zip(_leaves(a), _leaves(b)):
+                        worst = max(worst, _rel_close(x, y, "spmd", rel=1e-6))
+                how = f"within {worst:.3g} relative norm"
+            log(f"spmd: NCCL world 1 x {P} partitions, overlap={overlap} "
+                f"({'split' if model._split_active() else 'unsplit'}): 2 "
+                f"steps equal the sim backend's {how}")
+        mc, lr = _model_config(pipeline, "blocksparse", "auto")
+        mc = dataclasses.replace(mc, dropout=0.0)   # the SPMD masks differ
+        hist = {}
+        for ppd in (None, P):
+            hist[ppd] = train_pipegcn(
+                pipeline, mc, PipeConfig.named("pipegcn"), epochs=3, lr=lr,
+                seed=0, eval_every=1, device="cuda",
+                parts_per_device=ppd).history
+        assert hist[P]["loss"] == hist[None]["loss"], hist
+        log(f"spmd: train_pipegcn 3 epochs on NCCL equals the sim trainer "
+            f"(losses {hist[P]['loss']})")
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree.reshape(-1)]
+
+
+def phase_split_step_times(split_pipes):
+    """Median train-step ms, unsplit vs split (blocksparse, auto order),
+    per graph: 2 warm-up steps each, then 10 each in turns (unsplit,
+    split, split, unsplit)."""
+    import torch
+    from repro_torch.core import HealthConfig, make_train_step
+    from repro_torch.optim import adam
+    out = {}
+    for pipeline in split_pipes:
+        state = {}
+        for overlap in ("none", "auto"):
+            model, lr = split_model(pipeline, "blocksparse", overlap)
+            opt = adam(lr)
+            params = model.init_params(
+                torch.Generator(device="cuda").manual_seed(0))
+            state[overlap] = (make_train_step(model, opt, HealthConfig()), [
+                pipeline.topo, params, opt.init(params),
+                model.init_buffers(pipeline.topo), pipeline.train_data,
+                torch.Generator(device="cuda").manual_seed(1)])
+            _timed_steps(*state[overlap], 2)
+        times = {"none": [], "auto": []}
+        for overlap in ("none", "auto", "auto", "none"):
+            times[overlap] += _timed_steps(*state[overlap], 10)
+        name = graph_name(pipeline)
+        out[name] = {}
+        for overlap, ts in times.items():
+            q = sorted(ts)
+            label = "unsplit" if overlap == "none" else "split"
+            out[name][label] = dict(median=(q[9] + q[10]) / 2, q1=q[4],
+                                    q3=q[14], max=q[-1])
+            log(f"step: {name} blocksparse {label} train step ms over "
+                f"{len(q)} steps: median {out[name][label]['median']:.3f} "
+                f"quartiles {q[4]:.3f} {q[14]:.3f} max {q[-1]:.3f}")
+    log("step: split " + json.dumps(out))
+    return out
+
+
+def phase_exchange(split_pipes, runs):
+    """The boundary exchange of the split step on the sim backend (the
+    counterpart of the TPU's start_boundary_rdma): the packed forward
+    payload (P, P, slot, ΣF) of each split graph's full-width model,
+    copied transposed on the side stream (start + wait) against the same
+    copy on the compute stream; bound = the payload read and written once
+    at the memory rate. Launches: the side-stream copies of the graph's
+    blocksparse/auto main-path run."""
+    import torch
+    from repro_torch.core.pipegcn import SimBackend
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for pipeline in split_pipes:
+        topo = pipeline.topo
+        model, _ = split_model(pipeline, "blocksparse")
+        width = sum(model.payload_widths(topo))
+        P = topo.num_parts
+        s = torch.randn(P, P, topo.slot, width, device="cuda", generator=gen)
+        backend = SimBackend()
+        got = backend.start_exchange(s).wait()
+        assert torch.equal(got, s.transpose(0, 1)), graph_name(pipeline)
+        side_ms, plain_ms = _timed_pair(
+            lambda: backend.start_exchange(s).wait(),
+            lambda: s.transpose(0, 1).contiguous())
+        nbytes = 2.0 * s.numel() * 4
+        run = runs[graph_name(pipeline), "blocksparse", "auto"]
+        row = dict(graph=graph_name(pipeline), shape=list(s.shape),
+                   ms=side_ms, plain_ms=plain_ms,
+                   bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+                   mbytes=nbytes / 1e6,
+                   launches=run["launches"]["side_stream_copies"])
+        out.append(row)
+        log("exchange: " + json.dumps(row))
+    return out
+
+
+def phase_overlap(pipeline, steps: int = 3):
+    """Profile `steps` split train steps (blocksparse, auto) and read, from
+    the device timeline, how much of each exchange copy on the side stream
+    ran inside the interior-phase kernel it was issued before (the first
+    spmm kernel launched after the copy, by launch correlation id, on the
+    compute stream); also the share inside any compute-stream kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import HealthConfig, make_train_step
+    from repro_torch.optim import adam
+    model, lr = split_model(pipeline, "blocksparse", "auto")
+    opt = adam(lr)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, opt, HealthConfig())
+    state = [pipeline.topo, params, opt.init(params),
+             model.init_buffers(pipeline.topo), pipeline.train_data,
+             torch.Generator(device="cuda").manual_seed(1)]
+    _timed_steps(step, state, 2)     # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _timed_steps(step, state, steps)
+    traces = os.path.join(ROOT, "build", "traces")
+    os.makedirs(traces, exist_ok=True)
+    path = os.path.join(traces, f"trace_split_{pipeline.dataset.name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy")]
+    spmm = [e for e in kern if "spmm_tiles_kernel" in e["name"]]
+    assert spmm, "the profile shows no spmm kernel on the device"
+    main = spmm[0]["args"]["stream"]
+    side = [e for e in kern if e["args"].get("stream") != main]
+    assert side, "the profile shows no exchange on a side stream"
+    phases = sorted((e for e in spmm if e["args"]["stream"] == main),
+                    key=lambda e: e["args"]["correlation"])
+    busy = [(e["ts"], e["ts"] + e["dur"]) for e in kern
+            if e["args"].get("stream") == main]
+
+    def overlap(e, a, b):
+        return max(0.0, min(b, e["ts"] + e["dur"]) - max(a, e["ts"]))
+    side_us = inside_us = any_us = 0.0
+    for c in side:
+        interior = next(e for e in phases
+                        if e["args"]["correlation"] > c["args"]["correlation"])
+        side_us += c["dur"]
+        inside_us += overlap(c, interior["ts"],
+                             interior["ts"] + interior["dur"])
+        any_us += sum(overlap(c, a, b) for a, b in busy)
+    res = dict(graph=graph_name(pipeline), steps=steps,
+               side_stream_kernels=len(side), side_us=side_us,
+               inside_interior_phase_us=inside_us,
+               overlap_share=inside_us / side_us,
+               inside_any_compute_kernel_share=any_us / side_us,
+               side_names=sorted({e["name"][:50] for e in side}))
+    log("overlap: " + json.dumps(res))
+    return res
 
 
 def nvidia_smi_line() -> str:
@@ -697,11 +1230,29 @@ def main(argv) -> int:
             f"{topo.tile_rows.shape[1]} built in "
             f"{time.perf_counter() - t0:.2f} s")
     reddit, yelp = pipelines["reddit-sim"], pipelines["yelp-sim"]
+    split_pipes = []
+    for name, parts in SPLIT_GRAPHS:
+        t0 = time.perf_counter()
+        p = GraphDataPipeline.build(name, parts, kind="sage", agg="fused",
+                                    layout="auto", device="cuda")
+        split_pipes.append(p)
+        log(f"pipeline: {name} P={parts} layout={p.layout} max_inner "
+            f"{p.topo.max_inner} halo {p.topo.halo_size} n_tiles "
+            f"{p.topo.tile_rows.shape[1]} split {p.split_spec()} built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        assert p.split_spec() is not None, name
     rows = phase_kernels({k: p.topo for k, p in pipelines.items()})
     rows.update(phase_fused_kernels({k: p.topo for k, p in pipelines.items()}))
+    rows.update(phase_phased_kernels(split_pipes))
     phase_steps(reddit, yelp)
-    runs = phase_train(reddit, yelp)
+    phase_split(split_pipes)
+    phase_spmd(split_pipes[1])
+    runs = phase_train(reddit, yelp, split_pipes)
     phase_step_times(reddit, yelp)
+    phase_split_step_times(split_pipes)
+    phase_exchange(split_pipes, runs)
+    for p in split_pipes:
+        phase_overlap(p)
     if "--profile" in argv:
         for agg in ("blocksparse", "fused"):
             phase_profile(reddit, agg)

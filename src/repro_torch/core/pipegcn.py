@@ -2,27 +2,49 @@
 (one-iteration-deferred) boundary feature / feature-gradient communication,
 per the paper's Alg. 1 and Eq. 3–4, plus the §3.4 EMA smoothing.
 
-Port of the JAX package's ``repro.core.pipegcn`` on the single-device sim
-backend: partitions are a leading tensor axis, and the boundary exchange is
-a transpose of the (sender, receiver) axes. The backward pass is written by
-hand as in Alg. 1 (a stale gradient produced at step t is applied at t+1,
-which autograd cannot express), so no tensor here requires grad.
+Port of the JAX package's ``repro.core.pipegcn``. Two backends share the
+layer math; only the sync points differ (feature exchange, gradient
+exchange, weight-gradient and loss reductions):
+
+  SimBackend   every partition on one device as a leading tensor axis; the
+               exchange is a transpose of the (sender, receiver) axes.
+  SpmdBackend  one process per rank over ``torch.distributed`` (NCCL on the
+               card, gloo on the CPU), each holding n_local co-resident
+               partitions as its leading axis; the exchange is an
+               ``all_to_all_single`` (hierarchical when n_local > 1).
+
+The backward pass is written by hand as in Alg. 1 (a stale gradient
+produced at step t is applied at t+1, which autograd cannot express), so
+no tensor here requires grad.
 
 Where the JAX package vmaps a per-partition function over the partition
 axis, this module writes the partition axis out as a batch dimension:
 every tensor of the step carries it, gathers and scatters index a
 flattened partition×row axis, and one kernel launch covers all partitions.
 
-This slice runs the unsplit, fault-free, identity-wire step: variants
-vanilla / pipegcn / -g / -f / -gf, k-step FIFOs (``staleness_steps``) and
-the fused deferred exchange, with the "coo", "blocksparse" and "fused"
-engines.
-The options it does not run raise ``NotImplementedError`` when a
-``PipeGCN`` is built, naming the ROADMAP item that ports them.
+Two schedules run the same arithmetic. The unsplit step (`_step_impl`)
+exchanges each payload where it is produced. The split-phase step
+(`_step_impl_split`, ``PipeConfig.overlap``) cuts each layer's SpMM into a
+boundary phase and an interior phase and starts the exchange between
+them; in eager PyTorch the order of statements is the schedule, so the
+exchange is started (`backend.start_exchange`) after the boundary phase
+and waited on (`handle.wait()`) after the interior phase, before its
+first consumer. On the card the sim backend runs the exchange as a copy
+on a side CUDA stream and the SPMD backend as an asynchronous NCCL
+collective, the paper's second stream either way; the split step equals
+the unsplit one bitwise.
 
-State layout (per layer ℓ; widths follow the layer inputs):
-  feat_buf[ℓ] : (P, P*slot, F_ℓ)   stale boundary features   (Eq. 3 h^(t-1))
-  grad_buf[ℓ] : (P, max_inner, F_ℓ) stale boundary-gradient contributions,
+This slice runs the fault-free, identity-wire step: variants vanilla /
+pipegcn / -g / -f / -gf, k-step FIFOs (``staleness_steps``) and the fused
+deferred exchange, with the "coo", "blocksparse" and "fused" engines. The
+options it does not run raise ``NotImplementedError`` when a ``PipeGCN``
+is built, naming the ROADMAP item that ports them.
+
+State layout (per layer ℓ; widths follow the layer inputs; n is the
+number of partitions a backend holds: P on the sim backend, n_local on a
+rank):
+  feat_buf[ℓ] : (n, P*slot, F_ℓ)   stale boundary features   (Eq. 3 h^(t-1))
+  grad_buf[ℓ] : (n, max_inner, F_ℓ) stale boundary-gradient contributions,
                 already exchanged and scattered to owner rows (Eq. 4 δ^(t-1))
 With ``staleness_steps`` k > 1 each buffer gains a leading FIFO axis of k.
 """
@@ -38,7 +60,8 @@ from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
 from repro_torch.graph.reorder import TILE_ENGINES
 from repro_torch.kernels.aggregate import get_engine
-from repro_torch.kernels.gcn_spmm import TILE, live_lengths, run_pointers
+from repro_torch.kernels.gcn_spmm import (TILE, SplitSpec, live_lengths,
+                                          run_pointers)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -170,12 +193,26 @@ def params_from_jax(np_params: dict, device) -> dict:
             for k, v in np_params.items()}
 
 
+def split_spec_from(pg: PartitionedGraph, tile: int = TILE) -> SplitSpec | None:
+    """The split-phase schedule spec of a partitioned graph, or None when
+    the split is infeasible (P = 1, no sends, or boundary rows not
+    clustered into a tail: see ``graph.halo.boundary_row_split``). The
+    group sizes come from the same memoized ``extract_partition_tiles``
+    call that ``topology_from(pg, with_tiles=True)`` uses, so the phase cut
+    and the padded tile streams agree by construction."""
+    pt = extract_partition_tiles(pg, tile)
+    if pt.fwd_bnd is None:
+        return None
+    return SplitSpec(row_tail=pt.b0 * tile, col_tail=pt.hb0 * tile,
+                     fwd_bnd_tiles=pt.fwd_bnd, t_bnd_tiles=pt.t_bnd)
+
+
 # ----------------------------------------------------------------------
 # Boundary gather / scatter over the partition axis
 # ----------------------------------------------------------------------
 
 def _gather_send(h, send_idx, send_mask):
-    """(P, max_inner, F) -> (P, P, slot, F): row send_idx[p, j, k] of
+    """(n, max_inner, F) -> (n, P, slot, F): row send_idx[p, j, k] of
     partition p, the payload partition p sends to peer j (0 where masked)."""
     p, peers, slot = send_idx.shape
     rows = torch.arange(p, device=h.device)[:, None]
@@ -184,8 +221,18 @@ def _gather_send(h, send_idx, send_mask):
     return torch.where(send_mask[..., None], out, 0.0)
 
 
+def _gather_send_tail(h_tail, send_idx, send_mask, row_tail: int):
+    """`_gather_send` reading from the boundary phase's rows only: `h_tail`
+    holds rows [row_tail, max_inner) of the layer output. Every real send
+    index is >= row_tail by construction of the split; masked slots carry
+    index 0, which is clamped onto the first tail row and then zeroed by
+    the mask, as `_gather_send` zeroes them."""
+    return _gather_send(h_tail, torch.clamp(send_idx - row_tail, min=0),
+                        send_mask)
+
+
 def _scatter_recv(contrib, send_idx, send_mask, max_inner: int):
-    """(P, P, slot, F) received gradient blocks -> (P, max_inner, F):
+    """(n, P, slot, F) received gradient blocks -> (n, max_inner, F):
     partition p adds recv[p, j, k] into its row send_idx[p, j, k]."""
     p, peers, slot, f = contrib.shape
     contrib = torch.where(send_mask[..., None], contrib, 0.0)
@@ -203,7 +250,7 @@ def _scatter_recv(contrib, send_idx, send_mask, max_inner: int):
 # ----------------------------------------------------------------------
 
 def pack_payloads(payloads):
-    """Per-layer (P, P, slot, F_l) sends -> one (P, P, slot, ΣF_l)."""
+    """Per-layer (n, P, slot, F_l) sends -> one (n, P, slot, ΣF_l)."""
     return torch.cat(payloads, dim=-1)
 
 
@@ -212,23 +259,271 @@ def unpack_payloads(packed, widths):
     return list(torch.split(packed, list(widths), dim=-1))
 
 
-class SimBackend:
-    """Partitions as the leading axis on a single device: the exchanges
-    are transposes, and the reductions over partitions (weight gradients,
-    loss) are plain sums over the leading axis."""
+# ----------------------------------------------------------------------
+# Hierarchical exchange: P partitions on P // n_local ranks. Partition p
+# lives on rank p // n_local. Per rank, the send tensor s[l, j] is the
+# payload from co-resident partition l to global partition j. The
+# exchange blocks the global P axis as (n_dev, n_local): the two local
+# axes are permuted by reshapes and transposes, and only the device axis
+# crosses the wire, in one all_to_all of (n_local × n_local) blocks.
+# ----------------------------------------------------------------------
 
-    def exchange(self, s):
-        # s: (P_sender, P_receiver, slot, F); R[i, j] = S[j, i]
-        return s.transpose(0, 1)
+def _hier_pack(s, n_local: int):
+    """(n_local, P, ...) send tensor -> (n_dev, l_src, l_dst, ...) blocks,
+    device-major along axis 0 (the only axis the all_to_all splits)."""
+    n_dev = s.shape[1] // n_local
+    a = s.reshape((n_local, n_dev, n_local) + tuple(s.shape[2:]))
+    return a.transpose(0, 1)
+
+
+def _hier_unpack(recv, n_local: int):
+    """(n_dev, l_src, l_dst, ...) received blocks -> (n_local, P, ...): row
+    l holds the payloads addressed to co-resident partition l, indexed by
+    global sender id."""
+    n_dev = recv.shape[0]
+    r = recv.movedim(2, 0)
+    return r.reshape((n_local, n_dev * n_local) + tuple(recv.shape[3:]))
+
+
+def hierarchical_exchange_host(S):
+    """Single-process evaluation of the hierarchical exchange on a global
+    (n_dev, n_local, P, ...) payload with the device axis explicit: the
+    all_to_all is replaced by its definition (device d's chunk j lands on
+    device j at position d, a transpose of the two device axes)."""
+    n_local = S.shape[1]
+    blocks = torch.stack([_hier_pack(s, n_local) for s in S])
+    recv = blocks.transpose(0, 1)
+    return torch.stack([_hier_unpack(r, n_local) for r in recv])
+
+
+def flat_exchange_reference(S):
+    """The flat global exchange R[i, j] = S[j, i] over global partition ids,
+    reshaped to the same (n_dev, n_local, P, ...) layout: the
+    specification the hierarchical exchange must match."""
+    n_dev, n_local, p = S.shape[:3]
+    flat = S.reshape((n_dev * n_local, p) + tuple(S.shape[3:]))
+    return flat.transpose(0, 1).reshape(S.shape)
+
+
+# ----------------------------------------------------------------------
+# Backends: the sync points. An exchange is either blocking (`exchange`,
+# the unsplit step) or started and waited on (`start_exchange` returns a
+# handle whose `wait()` gives the received payload: the split step).
+# ----------------------------------------------------------------------
+
+class _Done:
+    """The handle of an exchange that completed when it was started."""
+
+    def __init__(self, recv):
+        self._recv = recv
+
+    def wait(self):
+        return self._recv
+
+
+class _Then:
+    """A handle whose result is `finish` applied to another handle's."""
+
+    def __init__(self, handle, finish):
+        self._handle, self._finish = handle, finish
+
+    def wait(self):
+        return self._finish(self._handle.wait())
+
+
+class _SideStreamCopy:
+    """An exchange copy running on a side CUDA stream; `wait()` makes the
+    caller's stream wait for it."""
+
+    def __init__(self, recv, done):
+        self._recv, self._done = recv, done
+
+    def wait(self):
+        torch.cuda.current_stream(self._recv.device).wait_event(self._done)
+        return self._recv
+
+
+class _Collective:
+    """An asynchronous torch.distributed collective and how to read its
+    output once it has landed."""
+
+    def __init__(self, work, out, finish):
+        self._work, self._out, self._finish = work, out, finish
+
+    def wait(self):
+        self._work.wait()
+        return self._finish(self._out)
+
+
+class _ExchangeBase:
+    """The fused exchange and the schedule hook, layered on each backend's
+    `exchange` / `start_exchange`."""
 
     def fused_exchange(self, payloads):
         """[self.exchange(p) for p in payloads], in one exchange."""
         recv = self.exchange(pack_payloads(payloads))
         return unpack_payloads(recv, [int(p.shape[-1]) for p in payloads])
 
+    def start_fused_exchange(self, payloads):
+        """`fused_exchange` started now; the handle's `wait()` gives the
+        per-layer payloads."""
+        widths = [int(p.shape[-1]) for p in payloads]
+        return _Then(self.start_exchange(pack_payloads(payloads)),
+                     lambda recv: unpack_payloads(recv, widths))
+
+    def note(self, event):
+        """A schedule event of the step (a phase launch); recorded by
+        `trace_utils.RecordingBackend`, ignored otherwise."""
+
+
+class SimBackend(_ExchangeBase):
+    """Partitions as the leading axis on a single device: the exchanges
+    are transposes, and the reductions over partitions (weight gradients,
+    loss) are sums over the leading axis. `side_copies` counts the
+    exchange copies started on a side CUDA stream."""
+
+    side_copies = 0
+
+    def __init__(self):
+        self._side = None       # the side CUDA stream, made at first use
+
+    def exchange(self, s):
+        # s: (P_sender, P_receiver, slot, F); R[i, j] = S[j, i]
+        return s.transpose(0, 1)
+
+    def start_exchange(self, s):
+        """Start the exchange of `s`. On the card the transpose copy runs
+        on a side stream, ordered after the work that produced `s`, so
+        the compute stream goes on with the interior phase; on the CPU it
+        completes here."""
+        if not s.is_cuda:
+            return _Done(self.exchange(s))
+        compute = torch.cuda.current_stream(s.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(s.device)   # from torch's pool
+        side = self._side
+        # allocated on the compute stream, which reads it after wait()
+        recv = torch.empty((s.shape[1], s.shape[0]) + tuple(s.shape[2:]),
+                           dtype=s.dtype, device=s.device)
+        ready = torch.cuda.Event()
+        ready.record(compute)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            recv.copy_(s.transpose(0, 1))
+            done = torch.cuda.Event()
+            done.record(side)
+        s.record_stream(side)   # s's memory is not reused before the copy
+        SimBackend.side_copies += 1
+        return _SideStreamCopy(recv, done)
+
+    def psum(self, x):
+        """Sum of per-partition values (n, ...) over all partitions."""
+        return x.sum(0)
+
+    def psum_scalar(self, x):
+        """Sum of a per-partition vector (n,) over all partitions."""
+        return x.sum()
+
+    def all_ok(self, ok):
+        """A verdict every rank shares (one rank here)."""
+        return ok
+
     def dropout_mask(self, generator, rate, shape):
         keep = torch.rand(shape, generator=generator,
                           device=generator.device) >= rate
+        return keep.to(torch.float32) / (1.0 - rate)
+
+
+class SpmdBackend(_ExchangeBase):
+    """One process per rank of a torch.distributed process group, each
+    holding partitions [rank·n_local, (rank+1)·n_local) as its leading
+    axis (the sim backend's layout, cut into device-major slices).
+
+    The exchange is one ``all_to_all_single``: flat for n_local = 1,
+    hierarchical otherwise (co-resident pairs are permuted locally, only
+    the device axis crosses the wire). `start_exchange` issues it with
+    ``async_op=True``: on the card NCCL runs it on its own stream, ordered
+    after the producer, and `wait()` orders the caller's stream after it.
+
+    The reductions gather every rank's per-partition values and sum them
+    in global partition order, as the sim backend sums its leading axis:
+    the result is bitwise the sim backend's and the same on every rank,
+    where an all_reduce would sum in its ring's order."""
+
+    def __init__(self, n_local: int = 1, group=None, rank: int | None = None,
+                 world_size: int | None = None):
+        import torch.distributed as dist
+        self.group = group
+        self.n_local = n_local
+        self.rank = dist.get_rank(group) if rank is None else rank
+        self.world_size = (dist.get_world_size(group) if world_size is None
+                           else world_size)
+
+    @property
+    def num_parts(self) -> int:
+        return self.world_size * self.n_local
+
+    def part_ids(self) -> list[int]:
+        """Global partition ids of this rank's leading-axis slots."""
+        return [self.rank * self.n_local + l for l in range(self.n_local)]
+
+    def _a2a(self, s, async_op: bool):
+        import torch.distributed as dist
+        if self.n_local == 1:
+            send = s[0].contiguous()        # (P, slot, F)
+
+            def finish(out):
+                return out[None]
+        else:
+            send = _hier_pack(s, self.n_local).contiguous()
+
+            def finish(out):
+                return _hier_unpack(out, self.n_local)
+        out = torch.empty_like(send)
+        work = dist.all_to_all_single(out, send, group=self.group,
+                                      async_op=async_op)
+        return work, out, finish
+
+    def exchange(self, s):
+        # s: (n_local, P, slot, F); R[l, j] = payload of global partition
+        # j to this rank's partition l
+        _, out, finish = self._a2a(s, async_op=False)
+        return finish(out)
+
+    def start_exchange(self, s):
+        work, out, finish = self._a2a(s, async_op=True)
+        return _Collective(work, out, finish)
+
+    def gather_parts(self, x):
+        """(n_local, ...) on every rank -> the global (P, ...) tensor, in
+        global partition order, on every rank."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world_size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, 0)
+
+    def psum(self, x):
+        return self.gather_parts(x).sum(0)
+
+    def psum_scalar(self, x):
+        return self.gather_parts(x).sum()
+
+    def all_ok(self, ok):
+        return self.gather_parts(ok.reshape(1).to(torch.int32)).min() > 0
+
+    def dropout_mask(self, generator, rate, shape):
+        """One generator stream per global partition id, so the mask a
+        partition sees does not depend on how partitions map onto ranks.
+        Every rank draws the same base seed from its copy of `generator`."""
+        dev = generator.device
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=dev))
+        keep = torch.stack([
+            torch.rand(tuple(shape[1:]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           base + pid)) >= rate
+            for pid in self.part_ids()])
         return keep.to(torch.float32) / (1.0 - rate)
 
 
@@ -237,24 +532,24 @@ class SimBackend:
 # ----------------------------------------------------------------------
 
 def _ce_loss_and_grad(logits, labels, mask, total):
-    """Masked softmax cross-entropy; returns (sum, dlogits)."""
+    """Masked softmax cross-entropy; returns (per-partition sums, dlogits)."""
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    loss_sum = torch.sum((lse - ll) * mask)
+    loss_sums = torch.sum((lse - ll) * mask, dim=1)
     probs = torch.softmax(logits, dim=-1)
     onehot = torch.nn.functional.one_hot(
         labels.long(), logits.shape[-1]).to(logits.dtype)
     dlogits = (probs - onehot) * mask[..., None] / total
-    return loss_sum, dlogits
+    return loss_sums, dlogits
 
 
 def _bce_loss_and_grad(logits, labels, mask, total):
     """Masked multi-label sigmoid BCE (Yelp-style); total counts node·class."""
     z, y = logits, labels.to(logits.dtype)
     per = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
-    loss_sum = torch.sum(per * mask[..., None])
+    loss_sums = torch.sum(per * mask[..., None], dim=(1, 2))
     dlogits = (torch.sigmoid(z) - y) * mask[..., None] / total
-    return loss_sum, dlogits
+    return loss_sums, dlogits
 
 
 # ----------------------------------------------------------------------
@@ -267,12 +562,14 @@ class PipeGCN:
 
     Parameters, pipeline buffers and the dropout generator are explicit
     arguments, as in the JAX package, so a step is a function of its
-    inputs. The step always runs unsplit: the split-phase schedule is not
-    ported, which is what the JAX package does without a SplitSpec.
+    inputs. `split` is the split-phase spec of the graph
+    (``split_spec_from(pg)`` or ``GraphDataPipeline.split_spec()``); None
+    runs every step unsplit whatever ``PipeConfig.overlap`` says.
     """
 
     model: ModelConfig
     pipe: PipeConfig
+    split: SplitSpec | None = None
 
     def __post_init__(self):
         get_engine(self.model.agg)      # unknown or unported engines raise
@@ -285,8 +582,6 @@ class PipeGCN:
         if self.pipe.guard_exchange:
             unported.append("guard_exchange (ROADMAP Queue 1 item 9: "
                             "fault tolerance)")
-        if self.pipe.overlap == "split-phase":
-            unported.append("overlap='split-phase' (ROADMAP Queue 1 item 6)")
         if unported:
             raise NotImplementedError(
                 "not ported to repro_torch yet: " + "; ".join(unported))
@@ -310,11 +605,12 @@ class PipeGCN:
 
     def init_buffers(self, topo: Topology, dtype=torch.float32) -> dict:
         """Zero pipeline state (Alg. 1 line 6: boundary features start at
-        0). With staleness_steps k > 1 each buffer is a FIFO along a new
+        0) for the partitions `topo` holds (all P, or a rank's n_local).
+        With staleness_steps k > 1 each buffer is a FIFO along a new
         leading axis of size k (slot 0 = oldest = consumed)."""
-        p = topo.num_parts
+        n = topo.send_idx.shape[0]
         k = self.pipe.staleness_steps
-        lead = ((k,) if k > 1 else ()) + (p,)
+        lead = ((k,) if k > 1 else ()) + (n,)
         dev = topo.send_idx.device
         feat, grad = [], []
         for w in self.payload_widths(topo):
@@ -358,19 +654,34 @@ class PipeGCN:
                 f"GraphDataPipeline.build(..., agg={engine.name!r})")
         return tslice
 
+    def _split_active(self) -> SplitSpec | None:
+        """The SplitSpec the step runs with, or None for unsplit, gated as
+        in the JAX package: "none" and a missing spec mean unsplit;
+        "split-phase" splits for every engine; "auto" splits only for the
+        engines that consume tile streams (for COO the split is pure
+        masking overhead). Feature slicing and the guarded exchange
+        disable the split (neither is ported yet)."""
+        if (self.pipe.overlap == "none" or self.split is None
+                or self.pipe.slice_boundary or self.pipe.guard_exchange):
+            return None
+        if self.pipe.overlap == "split-phase":
+            return self.split
+        return self.split if self.engine.name in TILE_ENGINES else None
+
     def payload_widths(self, topo: Topology) -> tuple[int, ...]:
         """Per-layer feature width of the boundary exchange payload (the
         layer input width fin; sliced layers are not ported)."""
         return tuple(fin for fin, _ in self.model.layer_dims())
 
-    def layer_orders(self, topo: Topology, train: bool = True) -> tuple[str, ...]:
-        """Per-layer matmul ordering the step runs with: forced, or "auto"
-        through the static FLOP model fed the shard's effective sparse work
-        (n_tiles·T² for the tile engines, the padded COO length otherwise)
-        and priced for the fused kernels when the engine is "fused" — the
-        JAX package's `_base_orders` inputs on its unsplit schedule, so
-        both resolve to the same orders (there are no sliced layers to
-        override it here)."""
+    def layer_orders(self, topo: Topology, train: bool = True,
+                     fused: bool | None = None) -> tuple[str, ...]:
+        """Per-layer matmul ordering: forced, or "auto" through the static
+        FLOP model fed the shard's effective sparse work (n_tiles·T² for
+        the tile engines, the padded COO length otherwise), as the JAX
+        package's `_base_orders` (there are no sliced layers here).
+        `fused` overrides whether the fused kernels are priced (default:
+        the engine is "fused"); the split-phase step runs the fused engine
+        through the composed phased path and passes fused=False."""
         mo = self.model.matmul_order
         L = self.model.num_layers
         if mo != "auto":
@@ -380,17 +691,25 @@ class PipeGCN:
             nnz_eff = [topo.tile_rows.shape[-1] * TILE * TILE] * L
         else:
             nnz_eff = [topo.edge_row.shape[-1]] * L
+        if fused is None:
+            fused = self.engine.name == "fused"
         from repro_torch.analysis.cost import choose_gcn_orders
         return choose_gcn_orders(self.model.layer_dims(), topo.max_inner,
                                  combined, nnz_eff, train=train,
-                                 fused=self.engine.name == "fused",
-                                 tile=TILE)
+                                 fused=fused, tile=TILE)
+
+    def step_orders(self, topo: Topology, train: bool = True):
+        """The orders the step runs with: `layer_orders`, priced unfused
+        under the split-phase schedule."""
+        split = self._split_active() is not None
+        return self.layer_orders(topo, train=train,
+                                 fused=False if split else None)
 
     def _layer_forward(self, tslice, w, b, h_prev, halo, drop_mask,
                        order: str = "aggregate-first",
                        fuse_relu: bool = False, with_z: bool = True):
         """One GCN/SAGE layer over all partitions. Returns (u, (comb, z)):
-        comb (P, combined, fin) is the [inner; halo] input after dropout, z
+        comb (n, combined, fin) is the [inner; halo] input after dropout, z
         the aggregation residual (None under transform-first or at eval).
         With `fuse_relu` u comes back activated: inside the fused kernel's
         epilogue for a GCN layer under aggregate-first (SAGE adds its self
@@ -420,11 +739,11 @@ class PipeGCN:
     def _layer_backward(self, tslice, w, du, comb, z, drop_mask, max_inner,
                         order: str = "aggregate-first",
                         need_dcomb: bool = True):
-        """Manual VJP of one layer over all partitions. Returns (gW summed
-        over partitions, dH_inner_local, dB_halo); the d-terms are None
-        when `need_dcomb=False` (layer 0 — Alg. 1 stops the backward there,
-        though transform-first still needs Pᵀ·du for its weight gradient).
-        """
+        """Manual VJP of one layer over all partitions. Returns (per-
+        partition gW (n, fan_in, fout), dH_inner_local, dB_halo); the
+        d-terms are None when `need_dcomb=False` (layer 0 — Alg. 1 stops
+        the backward there, though transform-first still needs Pᵀ·du for
+        its weight gradient)."""
         combined = comb.shape[1]
         fin = comb.shape[-1]
         sage = self.model.kind == "sage"
@@ -432,16 +751,16 @@ class PipeGCN:
         inner_t = comb[:, :max_inner].transpose(1, 2)
         if order == "transform-first":
             dhw = self.engine.spmm_t(tslice, du, combined)
-            gw = (comb.transpose(1, 2) @ dhw).sum(0)   # = Σ zᵀ·du without z
+            gw = comb.transpose(1, 2) @ dhw     # = zᵀ·du without z
             if sage:
-                gw = torch.cat([gw, (inner_t @ du).sum(0)], dim=0)
+                gw = torch.cat([gw, inner_t @ du], dim=1)
             if not need_dcomb:
                 return gw, None, None
             dcomb = dhw @ w1.T
         else:
-            gw = (z.transpose(1, 2) @ du).sum(0)
+            gw = z.transpose(1, 2) @ du
             if sage:
-                gw = torch.cat([gw, (inner_t @ du).sum(0)], dim=0)
+                gw = torch.cat([gw, inner_t @ du], dim=1)
             if not need_dcomb:
                 return gw, None, None
             dcomb = self.engine.aggregate_transform_t(tslice, du, w1,
@@ -453,18 +772,36 @@ class PipeGCN:
             dcomb = dcomb * drop_mask
         return gw, dcomb[:, :max_inner], dcomb[:, max_inner:]
 
+    def _loss(self, backend, logits, data):
+        """Masked, globally normalized loss: (loss, dlogits)."""
+        mask = data.train_mask.to(logits.dtype)
+        count = backend.psum_scalar(torch.sum(mask, dim=1))
+        if self.model.multilabel:
+            count = count * self.model.num_classes
+        total = torch.clamp(count, min=1.0)
+        loss_fn = (_bce_loss_and_grad if self.model.multilabel
+                   else _ce_loss_and_grad)
+        loss_sums, dlogits = loss_fn(logits, data.labels, mask, total)
+        return backend.psum_scalar(loss_sums) / total, dlogits
+
     # ---------------- forward/backward step ----------------
 
     def _step_impl(self, backend, topo: Topology, params, buffers, data,
                    generator, train: bool):
-        """One step over all partitions. Returns (loss, logits, grads,
-        new_buffers); grads and new_buffers are None when `train=False`."""
+        """One step over the backend's partitions. Returns (loss, logits,
+        grads, new_buffers); grads and new_buffers are None when
+        `train=False`. Runs the split-phase step when the split is active."""
+        sp = self._split_active()
+        if sp is not None:
+            return self._step_impl_split(backend, topo, params, buffers,
+                                         data, generator, train, sp)
         L = self.model.num_layers
         dims = self.model.layer_dims()
         pipe = self.pipe
         P = topo.num_parts
         max_inner = topo.max_inner
         combined = max_inner + topo.halo_size
+        n = topo.send_idx.shape[0]
 
         tslice = self._agg_slice(topo)
         send_idx, send_mask = topo.send_idx, topo.send_mask
@@ -479,15 +816,15 @@ class PipeGCN:
         pending_feat = []        # fused mode: per-layer sends, exchanged once
 
         def land(recv, ell):
-            """(P, P, slot, pw) received payload -> (P, P·slot, pw) halo."""
-            return recv.reshape(P, P * topo.slot, pw[ell])
+            """(n, P, slot, pw) received payload -> (n, P·slot, pw) halo."""
+            return recv.reshape(n, P * topo.slot, pw[ell])
 
         for ell in range(L):
             fin, _ = dims[ell]
             dm = None
             if dropout_rate > 0.0:
                 dm = backend.dropout_mask(generator, dropout_rate,
-                                          (P, combined, fin))
+                                          (n, combined, fin))
             act = ell < L - 1
             fuse_relu = act and not train
             payload = _gather_send(h, send_idx, send_mask)
@@ -520,18 +857,7 @@ class PipeGCN:
                     buffers["feat"][ell], land(recv, ell), pipe.smooth_feat)
 
         logits = h
-
-        # -- loss ---------------------------------------------------------
-        mask = data.train_mask.to(logits.dtype)
-        count = torch.sum(mask)
-        if self.model.multilabel:
-            count = count * self.model.num_classes
-        total = torch.clamp(count, min=1.0)
-        loss_fn = (_bce_loss_and_grad if self.model.multilabel
-                   else _ce_loss_and_grad)
-        loss_sum, dlogits = loss_fn(logits, data.labels, mask, total)
-        loss = loss_sum / total
-
+        loss, dlogits = self._loss(backend, logits, data)
         if not train:
             return loss, logits, None, None
 
@@ -541,7 +867,7 @@ class PipeGCN:
         pending_grad = []        # fused mode: (ell, send), exchanged once
 
         def ship_grad(ell, db):
-            """Exchange one layer's (P, P, slot, fin) gradient send (or queue
+            """Exchange one layer's (n, P, slot, fin) gradient send (or queue
             it for the fused exchange) and return the owner-row contribution
             the backward consumes this step (stale buffer when pipelined)."""
             if fuse:
@@ -561,16 +887,16 @@ class PipeGCN:
         for ell in reversed(range(L)):
             comb, z, u, dm = residuals[ell]
             du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
-            grads[f"b{ell}"] = du.sum(dim=(0, 1))
+            grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
             need_dcomb = ell > 0    # Alg. 1 stops the backward at layer 0
             gw, dh_local, db = self._layer_backward(
                 tslice, params[f"w{ell}"], du, comb, z, dm, max_inner,
                 order=orders[ell], need_dcomb=need_dcomb)
-            grads[f"w{ell}"] = gw
+            grads[f"w{ell}"] = backend.psum(gw)
             if ell == 0:
                 new_grad[0] = buffers["grad"][0]
                 break
-            db = db.reshape(P, P, topo.slot, dims[ell][0])
+            db = db.reshape(n, P, topo.slot, dims[ell][0])
             j = dh_local + ship_grad(ell, db)
 
         if fuse and pending_grad:
@@ -584,29 +910,278 @@ class PipeGCN:
         return loss, logits, grads, {"feat": tuple(new_feat),
                                      "grad": tuple(new_grad)}
 
+    # ---------------- split-phase step ----------------
+
+    def _step_impl_split(self, backend, topo: Topology, params, buffers,
+                         data, generator, train: bool, sp: SplitSpec):
+        """`_step_impl` under the split-phase overlap schedule.
+
+        Each layer's aggregation is cut into a boundary phase (the output
+        rows the next exchange reads: rows >= sp.row_tail forward, comb
+        rows >= sp.col_tail transposed) and an interior phase. The
+        boundary phase runs first, the payload is gathered from its rows,
+        the exchange is started, the interior phase runs while it is in
+        flight, and the exchange is waited on after the interior phase,
+        before its first consumer: the next layer's input (vanilla), the
+        backward's j (vanilla) or the t+1 buffer (stale). The fused
+        schedule starts its one packed exchange per direction once the
+        last payload is gathered and waits at the end of the pass. The
+        exchange of layer 0's payload (x itself) is started before the
+        loop; per layer it is waited on at once.
+
+        Each phase is bit-identical to the unsplit kernel on its own rows
+        and the dense algebra around it is row-local, so the split step
+        equals the unsplit one; it only moves each exchange between the
+        two phases (same count). The fused engine runs the composed phased
+        path (the fused epilogue would push the unwritten out-of-phase rows
+        through the weight), hence `layer_orders(..., fused=False)`.
+        """
+        L = self.model.num_layers
+        dims = self.model.layer_dims()
+        pipe = self.pipe
+        P = topo.num_parts
+        max_inner = topo.max_inner
+        combined = max_inner + topo.halo_size
+        n = topo.send_idx.shape[0]
+        rt, ct = sp.row_tail, sp.col_tail
+        sage = self.model.kind == "sage"
+        engine = self.engine
+
+        tslice = self._agg_slice(topo)
+        send_idx, send_mask = topo.send_idx, topo.send_mask
+        fuse = pipe.fused
+        orders = self.layer_orders(topo, train=train, fused=False)
+        pw = self.payload_widths(topo)
+        dropout_rate = self.model.dropout if train else 0.0
+
+        def spmm_phase(src, phase):
+            backend.note(("spmm_phased", phase))
+            return engine.spmm_phased(tslice, src, max_inner, sp, phase)
+
+        def spmm_t_phase(src, phase):
+            backend.note(("spmm_t_phased", phase))
+            return engine.spmm_t_phased(tslice, src, combined, sp, phase)
+
+        def land(recv, ell):
+            return recv.reshape(n, P * topo.slot, pw[ell])
+
+        residuals = []
+        new_feat = [None] * L
+        pending_feat = []
+
+        def finish_feat(ell, handle):
+            """Wait for layer ell's exchange; returns the halo it consumes
+            (the fresh payload in vanilla mode, the stale state else)."""
+            fresh = land(handle.wait(), ell)
+            if pipe.stale:
+                new_feat[ell] = self._update_buffer(
+                    buffers["feat"][ell], fresh, pipe.smooth_feat)
+                return self._consume_buffer(buffers["feat"][ell])
+            new_feat[ell] = buffers["feat"][ell]
+            return fresh
+
+        def defer_feat(ell, payload):
+            """Fused schedule: queue the payload, start the packed exchange
+            once the last one is in; returns the stale halo."""
+            pending_feat.append(payload)
+            if ell == L - 1:
+                flight["feat"] = backend.start_fused_exchange(pending_feat)
+            return self._consume_buffer(buffers["feat"][ell])
+
+        flight = {}
+        # -- forward -------------------------------------------------------
+        h = data.x
+        payload = _gather_send(h, send_idx, send_mask)
+        if fuse:
+            halo = defer_feat(0, payload)
+        else:
+            halo = finish_feat(0, backend.start_exchange(payload))
+
+        for ell in range(L):
+            fin, _ = dims[ell]
+            w, b = params[f"w{ell}"], params[f"b{ell}"]
+            w1 = w[:fin] if sage else w
+            dm = None
+            if dropout_rate > 0.0:
+                dm = backend.dropout_mask(generator, dropout_rate,
+                                          (n, combined, fin))
+            comb = torch.cat([h, halo], dim=1)
+            if dm is not None:
+                comb = comb * dm
+            tf = orders[ell] == "transform-first"
+            src = comb @ w1 if tf else comb
+            act = ell < L - 1
+
+            # boundary phase: rows [rt, max_inner) of raw_b are valid
+            raw_b = spmm_phase(src, "boundary")
+            tail_b = raw_b[:, rt:]
+            u_bt = tail_b + b if tf else tail_b @ w1 + b
+            if sage:
+                u_bt = u_bt + comb[:, rt:max_inner] @ w[fin:]
+            h_bt = torch.relu(u_bt) if act else u_bt
+
+            # the next layer's payload rows all lie in the tail just made:
+            # start its exchange before the interior phase
+            inflight = None
+            if ell + 1 < L:
+                payload = _gather_send_tail(h_bt, send_idx, send_mask, rt)
+                if fuse:
+                    halo = defer_feat(ell + 1, payload)
+                else:
+                    inflight = backend.start_exchange(payload)
+
+            # interior phase, while the exchange is in flight
+            raw_i = spmm_phase(src, "interior")
+            head_i = raw_i[:, :rt]
+            if tf:
+                u_ih = head_i + b
+                z = None
+            else:
+                u_ih = head_i @ w1 + b
+                z = torch.cat([head_i, tail_b], dim=1) if train else None
+            if sage:
+                u_ih = u_ih + comb[:, :rt] @ w[fin:]
+            if inflight is not None:
+                halo = finish_feat(ell + 1, inflight)
+            u = torch.cat([u_ih, u_bt], dim=1)
+            residuals.append((comb, z, u, dm))
+            h = torch.cat([torch.relu(u_ih), h_bt], dim=1) if act else u
+
+        if fuse:
+            for ell, recv in enumerate(flight.pop("feat").wait()):
+                new_feat[ell] = self._update_buffer(
+                    buffers["feat"][ell], land(recv, ell), pipe.smooth_feat)
+
+        logits = h
+        loss, dlogits = self._loss(backend, logits, data)
+        if not train:
+            return loss, logits, None, None
+
+        # -- manual backward ----------------------------------------------
+        # The transposed mirror of the forward: the boundary phase of Pᵀ·δ
+        # produces comb rows >= ct, a superset of the halo rows that form
+        # the gradient send, so the exchange is started between the two
+        # transpose phases (fused: at the last backward layer, ell == 1).
+        grads = {}
+        new_grad = [None] * L
+        pending_grad = []
+
+        j = dlogits
+        for ell in reversed(range(L)):
+            comb, z, u, dm = residuals[ell]
+            fin, _ = dims[ell]
+            w = params[f"w{ell}"]
+            w1 = w[:fin] if sage else w
+            du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
+            grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
+            if ell == 0:
+                # Alg. 1 stops the backward at layer 0: weight gradient
+                # only, through the unsplit per-layer backward
+                gw, _, _ = self._layer_backward(
+                    tslice, w, du, comb, z, dm, max_inner, order=orders[0],
+                    need_dcomb=False)
+                grads["w0"] = backend.psum(gw)
+                new_grad[0] = buffers["grad"][0]
+                break
+
+            tf = orders[ell] == "transform-first"
+            # one dense op ahead of both phases under aggregate-first
+            # (δhw = du·w1ᵀ); transform-first transposes du itself and
+            # applies w1ᵀ per phase (the pre-w1 pieces feed the weight grad)
+            src_t = du if tf else du @ w1.T
+            if sage:
+                sage_t = du @ w[fin:].T
+
+            # boundary phase: comb rows [ct, combined) valid
+            raw_tb = spmm_t_phase(src_t, "boundary")
+            dhw_b = raw_tb[:, ct:]
+            d_bt = dhw_b @ w1.T if tf else dhw_b
+            if sage:
+                d_bt = torch.cat([d_bt[:, :max_inner - ct]
+                                  + sage_t[:, ct:],
+                                  d_bt[:, max_inner - ct:]], dim=1)
+            if dm is not None:
+                d_bt = d_bt * dm[:, ct:]
+
+            # the gradient send is the halo rows of the boundary phase
+            db = d_bt[:, max_inner - ct:].reshape(n, P, topo.slot, fin)
+            inflight = None
+            if fuse:
+                pending_grad.append((ell, db))
+                contrib = self._consume_buffer(buffers["grad"][ell])
+                if ell == 1:
+                    flight["grad"] = backend.start_fused_exchange(
+                        [d for _, d in pending_grad])
+            else:
+                inflight = backend.start_exchange(db)
+
+            # interior phase, while the exchange is in flight
+            raw_ti = spmm_t_phase(src_t, "interior")
+            dhw_i = raw_ti[:, :ct]
+            if tf:
+                d_ih = dhw_i @ w1.T
+                dhw_full = torch.cat([dhw_i, dhw_b], dim=1)
+                gw = comb.transpose(1, 2) @ dhw_full
+            else:
+                d_ih = dhw_i
+                gw = z.transpose(1, 2) @ du
+            if sage:
+                gw = torch.cat(
+                    [gw, comb[:, :max_inner].transpose(1, 2) @ du], dim=1)
+                d_ih = d_ih + sage_t[:, :ct]
+            if dm is not None:
+                d_ih = d_ih * dm[:, :ct]
+            grads[f"w{ell}"] = backend.psum(gw)
+            if inflight is not None:
+                fresh = _scatter_recv(inflight.wait(), send_idx, send_mask,
+                                      max_inner)
+                if pipe.stale:
+                    contrib = self._consume_buffer(buffers["grad"][ell])
+                    new_grad[ell] = self._update_buffer(
+                        buffers["grad"][ell], fresh, pipe.smooth_grad)
+                else:
+                    contrib = fresh
+                    new_grad[ell] = buffers["grad"][ell]
+            j = torch.cat([d_ih, d_bt[:, :max_inner - ct]], dim=1) + contrib
+
+        if fuse and pending_grad:
+            recvs = flight.pop("grad").wait()
+            for (ell, _), recv in zip(pending_grad, recvs):
+                fresh = _scatter_recv(recv, send_idx, send_mask, max_inner)
+                new_grad[ell] = self._update_buffer(
+                    buffers["grad"][ell], fresh, pipe.smooth_grad)
+
+        return loss, logits, grads, {"feat": tuple(new_feat),
+                                     "grad": tuple(new_grad)}
+
     # ---------------- public API ----------------
 
     def train_step(self, topo: Topology, params, buffers, data: ShardedData,
-                   generator: torch.Generator | None = None):
-        """Sim-backend training step over (P, ...) tensors. Returns
-        (loss, grads, new_buffers, logits). `generator` draws the dropout
-        masks (one per layer); it may be None at dropout 0."""
+                   generator: torch.Generator | None = None, backend=None):
+        """Training step over the backend's partitions (default the sim
+        backend: all P). Returns (loss, grads, new_buffers, logits);
+        grads are summed over all partitions. `generator` draws the
+        dropout masks (one per layer); it may be None at dropout 0."""
         if self.model.dropout > 0.0 and generator is None:
             raise ValueError("dropout > 0 needs a torch.Generator")
         exact_f32_matmul()
         with torch.no_grad():
             loss, logits, grads, new_buffers = self._step_impl(
-                SimBackend(), topo, params, buffers, data, generator,
-                train=True)
+                SimBackend() if backend is None else backend, topo, params,
+                buffers, data, generator, train=True)
         return loss, grads, new_buffers, logits
 
-    def forward(self, topo: Topology, params, data: ShardedData):
+    def forward(self, topo: Topology, params, data: ShardedData,
+                backend=None):
         """Inference forward with synchronous (fresh) exchange — used for
-        evaluation, like the paper's test-time behaviour."""
+        evaluation, like the paper's test-time behaviour. Keeps the split
+        spec: under a vanilla PipeConfig ("auto" overlap) a tile engine
+        evaluates through the split-phase step, as in the JAX package."""
         fresh_self = dataclasses.replace(self, pipe=PipeConfig.vanilla())
         buffers = fresh_self.init_buffers(topo, dtype=data.x.dtype)
         exact_f32_matmul()
         with torch.no_grad():
             loss, logits, _, _ = fresh_self._step_impl(
-                SimBackend(), topo, params, buffers, data, None, train=False)
+                SimBackend() if backend is None else backend, topo, params,
+                buffers, data, None, train=False)
         return loss, logits

@@ -1,0 +1,138 @@
+"""Schedule accounting for the PipeGCN step: which exchanges a step issues,
+and where they sit between the phase launches of the split-phase schedule.
+
+Port of the JAX package's ``repro.core.trace_utils``. The JAX package
+traces a step to a jaxpr and counts its collectives there; an eager
+PyTorch step has no trace, so a backend wrapper records the step's events
+as they happen instead:
+
+  "exchange"                      a blocking exchange (the unsplit step)
+  "exchange_start"                an exchange started (the split step)
+  "exchange_wait"                 ... and waited on
+  ("spmm_phased", phase)          a forward phase launch
+  ("spmm_t_phased", phase)        a transpose phase launch
+
+The fused deferred exchange issues 2 exchanges per training step (one
+packed exchange per direction), the per-layer schedule 2L-1; the split
+schedule keeps the count and only moves each exchange between the phases.
+"""
+from __future__ import annotations
+
+from repro_torch.core.pipegcn import _ExchangeBase
+
+EXCHANGES = ("exchange", "exchange_start")
+
+
+class _RecordedWait:
+    def __init__(self, handle, events):
+        self._handle, self._events = handle, events
+
+    def wait(self):
+        self._events.append("exchange_wait")
+        return self._handle.wait()
+
+
+class RecordingBackend(_ExchangeBase):
+    """Wraps a backend and records the step's schedule events in
+    `events`; every sync point is forwarded to `inner` unchanged."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.events: list = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def note(self, event):
+        self.events.append(event)
+
+    def exchange(self, s):
+        self.events.append("exchange")
+        return self.inner.exchange(s)
+
+    def start_exchange(self, s):
+        self.events.append("exchange_start")
+        return _RecordedWait(self.inner.start_exchange(s), self.events)
+
+
+def count_exchanges(events) -> int:
+    """Boundary exchanges issued in an event list (blocking or started)."""
+    return sum(e in EXCHANGES for e in events)
+
+
+def expected_boundary_collectives(num_layers: int, fused: bool,
+                                  train: bool = True) -> int:
+    """The exchange count of the two communication schedules: per layer,
+    L forward + (L-1) backward = 2L-1 per training step (L at eval);
+    fused-deferred, 1 packed forward + 1 packed backward = 2 (1 at eval);
+    a 1-layer model has no gradient sends."""
+    L = num_layers
+    if fused:
+        fwd, bwd = 1, (1 if L > 1 else 0)
+    else:
+        fwd, bwd = L, L - 1
+    return fwd + (bwd if train else 0)
+
+
+def expected_split_events(num_layers: int, fused: bool,
+                          train: bool = True) -> list:
+    """The event sequence of a split-phase step on a tile engine (the JAX
+    package's `expected_split_events`, with the waits placed).
+
+    Forward, per-layer schedule: layer 0's exchange (its payload is x) is
+    started and waited on before the loop; then each layer runs [boundary
+    phase, start of the next layer's exchange (if any), interior phase,
+    its wait]. Fused schedule: the one packed exchange starts once the
+    last payload is gathered, between layer L-2's phases (before the loop
+    when L == 1), and is waited on at the end of the forward. The
+    backward mirrors it with the transpose phases down to layer 1 (Alg. 1
+    stops at layer 0), the fused exchange starting between layer 1's
+    phases and waited on at the end of the backward."""
+    L = num_layers
+    S, W = "exchange_start", "exchange_wait"
+    ev: list = []
+    if fused and L == 1:
+        ev += [S]
+    if not fused:
+        ev += [S, W]
+    for ell in range(L):
+        ev += [("spmm_phased", "boundary")]
+        starts = (ell == L - 2) if fused else (ell < L - 1)
+        if starts:
+            ev += [S]
+        ev += [("spmm_phased", "interior")]
+        if starts and not fused:
+            ev += [W]
+    if fused:
+        ev += [W]
+    if not train:
+        return ev
+    for ell in reversed(range(1, L)):
+        starts = (not fused) or ell == 1
+        ev += [("spmm_t_phased", "boundary")]
+        if starts:
+            ev += [S]
+        ev += [("spmm_t_phased", "interior")]
+        if starts:
+            ev += [W]
+    return ev
+
+
+def check_overlap(events) -> None:
+    """Assert the overlap property of a split-phase event list: every
+    exchange started after a phase launch sits between a boundary and an
+    interior phase, and is waited on after that interior phase."""
+    for i, e in enumerate(events):
+        if e != "exchange_start" or not any(
+                isinstance(x, tuple) for x in events[:i]):
+            continue
+        before, after = events[i - 1], events[i + 1]
+        if not (isinstance(before, tuple) and before[1] == "boundary"
+                and isinstance(after, tuple) and after[1] == "interior"
+                and before[0] == after[0]):
+            raise AssertionError(f"exchange start {i} is not between a "
+                                 f"boundary and an interior phase: {events}")
+        rest = events[i:]
+        if rest.count("exchange_wait") < rest.count("exchange_start"):
+            raise AssertionError(f"exchange start {i} is never waited on "
+                                 f"after its interior phase: {events}")

@@ -14,12 +14,61 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipegcn import (ShardedData, Topology, resolve_device,
-                                      shard_data, topology_from)
+                                      shard_data, split_spec_from,
+                                      topology_from)
 from repro_torch.graph.csr import mean_normalized, sym_normalized
 from repro_torch.graph.halo import PartitionedGraph, build_partitioned_graph
 from repro_torch.graph.partition import partition_graph
 from repro_torch.graph.reorder import TILE_ENGINES, resolve_layout
 from repro_torch.graph.synthetic import GraphDataset, make_dataset
+
+
+def to_local_layout(tree, n_local: int, axis: int = 0):
+    """Reshape every (…, P, …) partition-axis tensor of a NamedTuple,
+    tuple, list or dict to the per-rank view (…, n_dev, n_local, …)
+    (device-major: partition p lives on rank p // n_local). `axis` is the
+    partition axis (0 for Topology / ShardedData tensors, 1 for k-step
+    staleness FIFOs). None leaves stay None."""
+
+    def r(x):
+        p = x.shape[axis]
+        if p % n_local:
+            raise ValueError(
+                f"partition axis {axis} has size {p}, not a multiple of "
+                f"n_local={n_local}")
+        return x.reshape(x.shape[:axis] + (p // n_local, n_local)
+                         + x.shape[axis + 1:])
+
+    return _tree_map(r, tree)
+
+
+def from_local_layout(tree, axis: int = 0):
+    """Inverse of `to_local_layout`: merge the (n_dev, n_local) pair at
+    `axis` back into a flat partition axis."""
+
+    def r(x):
+        return x.reshape(x.shape[:axis] + (x.shape[axis] * x.shape[axis + 1],)
+                         + x.shape[axis + 2:])
+
+    return _tree_map(r, tree)
+
+
+def rank_view(tree, rank: int, n_local: int, axis: int = 0):
+    """The partitions of rank `rank`, [rank·n_local, (rank+1)·n_local),
+    of every partition-axis tensor of a tree (a view, no copy)."""
+    return _tree_map(lambda x: x.narrow(axis, rank * n_local, n_local), tree)
+
+
+def _tree_map(fn, tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 @dataclasses.dataclass
@@ -70,9 +119,12 @@ class GraphDataPipeline:
             agg=agg, layout=layout)
 
     def split_spec(self):
-        """Always None: the split-phase overlap schedule is not ported
-        (ROADMAP Queue 1 item 6), so every step runs unsplit."""
-        return None
+        """`SplitSpec` of this pipeline's partitioned graph for the
+        split-phase overlap schedule (`PipeConfig.overlap`), or None when
+        the split is infeasible (one partition, no boundary sends, or a
+        layout whose boundary rows are not clustered into a tail, such as
+        "natural"). Memoized with the tile extraction on `pg`."""
+        return split_spec_from(self.pg)
 
     def metric(self, logits_packed) -> dict:
         """Global accuracy (single-label) or F1-micro (multilabel) on

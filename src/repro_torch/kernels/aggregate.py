@@ -1,13 +1,19 @@
 """Aggregation engines for the PipeGCN hot path (Eq. 3/4 SpMM).
 
-Port of the JAX package's ``repro.kernels.aggregate`` (unphased methods).
-The training step calls aggregation through a narrow interface, over
-tensors that carry the leading partition axis:
+Port of the JAX package's ``repro.kernels.aggregate``. The training step
+calls aggregation through a narrow interface, over tensors that carry the
+leading partition axis:
 
     z      = engine.spmm(tslice, comb, num_rows)      # z = P_local · comb
     dcomb  = engine.spmm_t(tslice, dz, num_cols)      # δcomb = P_localᵀ · δz
     u, z   = engine.aggregate_transform(tslice, comb, w, b, num_rows)
     dcomb  = engine.aggregate_transform_t(tslice, du, w, num_cols)
+    z      = engine.spmm_phased(tslice, comb, num_rows, split, phase)
+    dcomb  = engine.spmm_t_phased(tslice, dz, num_cols, split, phase)
+
+The phased pair computes one phase ("boundary" or "interior") of the
+split-phase schedule (``gcn_spmm.SplitSpec``): only the phase's own output
+rows are valid.
 
 `tslice` is the tuple of Topology fields named by ``engine.fields``. The
 ``aggregate_transform*`` pair composes the SpMM with a dense matmul, except
@@ -44,6 +50,12 @@ class AggregationEngine:
     def spmm_t(self, tslice, dz, num_cols: int):
         raise NotImplementedError
 
+    def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
+        raise NotImplementedError
+
+    def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
+        raise NotImplementedError
+
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
                             relu: bool = False, with_z: bool = True):
         """u = (P·comb) @ w + b (ReLU'd when `relu`), plus the aggregation
@@ -63,6 +75,15 @@ def _flat_index(idx: torch.Tensor, stride: int) -> torch.Tensor:
     """(P, n) per-partition row index -> (P·n,) index into a (P·stride) axis."""
     p = torch.arange(idx.shape[0], device=idx.device)[:, None]
     return (idx.long() + stride * p).reshape(-1)
+
+
+def _phase_keep(in_boundary: torch.Tensor, phase: str) -> torch.Tensor:
+    """Edge-level phase membership from a boundary predicate."""
+    if phase == "boundary":
+        return in_boundary
+    if phase == "interior":
+        return ~in_boundary
+    raise ValueError(f"phase must be 'boundary' or 'interior', got {phase!r}")
 
 
 def _coo(src, dst, w, x, num_out: int):
@@ -89,6 +110,21 @@ class CooEngine(AggregationEngine):
         edge_row, edge_col, edge_w = tslice
         return _coo(edge_row, edge_col, edge_w, dz, num_cols)
 
+    # Out-of-phase edges get weight 0, so each phase's own rows see the
+    # same sequence of terms as the unsplit call (the zeroed terms add an
+    # exact 0.0); out-of-phase rows come out zero, as in the JAX package.
+    def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
+        edge_row, edge_col, edge_w = tslice
+        keep = _phase_keep(edge_row >= split.row_tail, phase)
+        return _coo(edge_col, edge_row, torch.where(keep, edge_w, 0), comb,
+                    num_rows)
+
+    def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
+        edge_row, edge_col, edge_w = tslice
+        keep = _phase_keep(edge_col >= split.col_tail, phase)
+        return _coo(edge_row, edge_col, torch.where(keep, edge_w, 0), dz,
+                    num_cols)
+
 
 class BlockSparseEngine(AggregationEngine):
     """Block-sparse aggregation on the tile streams (see gcn_spmm)."""
@@ -109,13 +145,28 @@ class BlockSparseEngine(AggregationEngine):
         return gcn_spmm.spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals,
                                dz.contiguous(), num_cols)
 
+    def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
+        row_ptr, live, rows, cols, vals = tslice[:5]
+        return gcn_spmm.spmm_phased(row_ptr, live, rows, cols, vals,
+                                    comb.contiguous(), num_rows, split, phase)
+
+    def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
+        vals = tslice[4]
+        col_ptr, t_live, t_out, t_in, t_perm = tslice[5:]
+        return gcn_spmm.spmm_t_phased(col_ptr, t_live, t_out, t_in, t_perm,
+                                      vals, dz.contiguous(), num_cols, split,
+                                      phase)
+
 
 class FusedBlockSparseEngine(BlockSparseEngine):
     """Block-sparse tiles + the fused aggregate+transform kernels.
 
-    The primitive spmm/spmm_t (the transform-first ordering) are
-    inherited; the `aggregate_transform*` pair runs the single-pass fused
-    kernels (``gcn_spmm.spmm_fused`` / ``spmm_fused_t``)."""
+    The primitive spmm/spmm_t (the transform-first ordering) and the
+    phased pair are inherited; the `aggregate_transform*` pair runs the
+    single-pass fused kernels (``gcn_spmm.spmm_fused`` / ``spmm_fused_t``).
+    The split-phase schedule runs this engine through the composed phased
+    path: the fused epilogue would push the unwritten out-of-phase rows
+    through the dense weight."""
 
     name = "fused"
 

@@ -6,6 +6,17 @@
 //                             (kernel body _kernel, :85)
 //   transpose  δcomb = Pᵀ·δz  repro/kernels/gcn_spmm.py:182 spmm_block_sparse_t
 //                             (kernel body _kernel_t, :151)
+//   both, one phase of the split-phase schedule:
+//                             repro/kernels/gcn_spmm.py:245 spmm_block_sparse_phased,
+//                             :267 spmm_block_sparse_t_phased
+//
+// A phase is a range of output blocks [blk_begin, blk_end): the grid covers
+// only those blocks and the other output rows are not written. The Pallas
+// entry points run a phase as a slice of the tile stream (its last n_bnd
+// slots, or the rest); the phase-aware padding places every pad of a group
+// at that group's last output block, so the slots of a block range are
+// exactly that slice, and each block walks the same run in the same order
+// as in the unphased launch: the two phases together are bit-equal to it.
 //
 // P is stored as dense 128×128 tiles (only the nonempty ones). The forward
 // stream is grouped by output row block, the transpose stream by output
@@ -63,14 +74,14 @@ spmm_tiles_kernel(const int* __restrict__ ptr,    // (P, n_out_blocks + 1)
                   const float* __restrict__ vals, // (P, n_tiles, 128, 128)
                   const float* __restrict__ x,    // (P, x_rows, F)
                   float* __restrict__ out,        // (P, out_rows, F)
-                  int n_out_blocks, int n_tiles, int x_rows, int out_rows,
-                  int F) {
+                  int n_out_blocks, int blk_begin, int n_tiles, int x_rows,
+                  int out_rows, int F) {
   // as_[k][m] = A[m][k0 + k] with A = tile (forward) or tileᵀ (transpose);
   // the +1 pad keeps both the transposing store and the reads conflict-free.
   __shared__ float as_[KC][TILE + 1];
   __shared__ float xs_[KC][FB];
 
-  const int r = blockIdx.x;
+  const int r = blk_begin + blockIdx.x;
   const int f0 = blockIdx.y * FB;
   const int p = blockIdx.z;
   const int tid = threadIdx.x;
@@ -153,10 +164,12 @@ spmm_tiles_kernel(const int* __restrict__ ptr,    // (P, n_out_blocks + 1)
 
 int launch(bool transpose, const void* ptr, const void* live, const void* blk,
            const void* perm, const void* vals, const void* x, void* out, int P,
-           int n_out_blocks, int n_tiles, int x_rows, int out_rows, int F,
-           void* stream) {
-  if (P <= 0 || n_out_blocks <= 0 || F <= 0) return cudaSuccess;
-  const dim3 grid(n_out_blocks, (F + FB - 1) / FB, P);
+           int n_out_blocks, int blk_begin, int blk_end, int n_tiles,
+           int x_rows, int out_rows, int F, void* stream) {
+  if (blk_begin < 0 || blk_end > n_out_blocks || blk_begin >= blk_end)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (P <= 0 || F <= 0) return cudaSuccess;
+  const dim3 grid(blk_end - blk_begin, (F + FB - 1) / FB, P);
   const dim3 block(THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(ptr);
@@ -168,10 +181,12 @@ int launch(bool transpose, const void* ptr, const void* live, const void* blk,
   float* o = static_cast<float*>(out);
   if (transpose)
     spmm_tiles_kernel<true><<<grid, block, 0, st>>>(
-        ip, il, ib, im, v, xx, o, n_out_blocks, n_tiles, x_rows, out_rows, F);
+        ip, il, ib, im, v, xx, o, n_out_blocks, blk_begin, n_tiles, x_rows,
+        out_rows, F);
   else
     spmm_tiles_kernel<false><<<grid, block, 0, st>>>(
-        ip, il, ib, nullptr, v, xx, o, n_out_blocks, n_tiles, x_rows, out_rows, F);
+        ip, il, ib, nullptr, v, xx, o, n_out_blocks, blk_begin, n_tiles,
+        x_rows, out_rows, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,25 +194,28 @@ int launch(bool transpose, const void* ptr, const void* live, const void* blk,
 
 extern "C" {
 
-// z[p] = P_p · h[p]. row_ptr (P, nrb+1), live (P,), cols (P, n_tiles), vals
-// (P, n_tiles, 128, 128), h (P, h_rows, F), z (P, num_rows, F);
-// nrb = ceil(num_rows/128).
+// z[p] = P_p · h[p] on row blocks [blk_begin, blk_end) (0 and nrb: all).
+// row_ptr (P, nrb+1), live (P,), cols (P, n_tiles), vals (P, n_tiles, 128,
+// 128), h (P, h_rows, F), z (P, num_rows, F); nrb = ceil(num_rows/128).
+// An empty or out-of-range block range returns cudaErrorInvalidValue.
 int gcn_spmm_f32(const void* row_ptr, const void* live, const void* cols,
                  const void* vals, const void* h, void* z, int P, int nrb,
-                 int n_tiles, int h_rows, int num_rows, int F, void* stream) {
+                 int blk_begin, int blk_end, int n_tiles, int h_rows,
+                 int num_rows, int F, void* stream) {
   return launch(false, row_ptr, live, cols, nullptr, vals, h, z, P, nrb,
-                n_tiles, h_rows, num_rows, F, stream);
+                blk_begin, blk_end, n_tiles, h_rows, num_rows, F, stream);
 }
 
-// dcomb[p] = P_pᵀ · dz[p]. col_ptr (P, ncb+1), t_live (P,), t_in / t_perm
-// (P, n_tiles), vals as above, dz (P, dz_rows, F), dcomb (P, num_cols, F);
-// ncb = ceil(num_cols/128).
+// dcomb[p] = P_pᵀ · dz[p] on column blocks [blk_begin, blk_end). col_ptr
+// (P, ncb+1), t_live (P,), t_in / t_perm (P, n_tiles), vals as above, dz
+// (P, dz_rows, F), dcomb (P, num_cols, F); ncb = ceil(num_cols/128).
 int gcn_spmm_t_f32(const void* col_ptr, const void* t_live, const void* t_in,
                    const void* t_perm, const void* vals, const void* dz,
-                   void* dcomb, int P, int ncb, int n_tiles, int dz_rows,
-                   int num_cols, int F, void* stream) {
+                   void* dcomb, int P, int ncb, int blk_begin, int blk_end,
+                   int n_tiles, int dz_rows, int num_cols, int F,
+                   void* stream) {
   return launch(true, col_ptr, t_live, t_in, t_perm, vals, dz, dcomb, P, ncb,
-                n_tiles, dz_rows, num_cols, F, stream);
+                blk_begin, blk_end, n_tiles, dz_rows, num_cols, F, stream);
 }
 
 }  // extern "C"

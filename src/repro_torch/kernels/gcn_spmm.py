@@ -21,7 +21,16 @@ Pallas kernels ``spmm_block_sparse_fused`` and ``spmm_block_sparse_fused_t``:
     spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
                  num_cols)                                δcomb = Pᵀ·(du@wᵀ)
 
-All four take the leading partition axis (one launch covers every
+The split-phase schedule runs the spmm pair one phase at a time
+(``spmm_phased`` / ``spmm_t_phased``, replacing the Pallas entry points
+``spmm_block_sparse_phased`` and ``spmm_block_sparse_t_phased``): the same
+kernels launched on a range of output blocks, the boundary phase on the
+blocks from ``SplitSpec.row_tail`` (``col_tail`` for the transpose) on and
+the interior phase on those before. Their plain versions slice the tile
+streams as the JAX package does and fill the rows outside the phase with
+NaN, which the kernels leave unwritten.
+
+All take the leading partition axis (one launch covers every
 partition). A CUDA tensor goes to the kernel and a CPU tensor to the plain
 PyTorch version beside it (``spmm_plain`` / ``spmm_t_plain``, the einsum +
 ``index_add_`` form of the JAX package's dense oracle, and
@@ -93,6 +102,74 @@ def spmm_t_plain(t_out, t_in, t_perm, vals, dz, num_cols: int) -> torch.Tensor:
     return _scatter_blocks(contrib, t_out, -(-num_cols // TILE), num_cols)
 
 
+class SplitSpec(NamedTuple):
+    """The interior/boundary phase split of one partitioned graph's tile
+    streams, the same for every partition (the phase-aware padding of
+    `pad_tile_topology_phased` makes it so). All fields are ints."""
+
+    row_tail: int       # first forward boundary-phase output row (b0·T)
+    col_tail: int       # first transpose boundary-phase output row (hb0·T)
+    fwd_bnd_tiles: int  # boundary-suffix length of the forward stream
+    t_bnd_tiles: int    # boundary-suffix length of the transpose stream
+
+
+def phase_blocks(tail: int, num_out: int, phase: str) -> tuple[int, int]:
+    """The output-block range [begin, end) of one phase: the boundary phase
+    is the blocks from tail//TILE on, the interior phase those before.
+    Raises when the phase would be empty or `tail` is off the block grid."""
+    nblocks = -(-num_out // TILE)
+    cut, rem = divmod(tail, TILE)
+    if rem or not 0 < cut < nblocks:
+        raise ValueError(f"phase split at row {tail} must be a multiple of "
+                         f"{TILE} strictly inside the {nblocks} output blocks")
+    if phase == "boundary":
+        return cut, nblocks
+    if phase == "interior":
+        return 0, cut
+    raise ValueError(f"phase must be 'boundary' or 'interior', got {phase!r}")
+
+
+def phase_slots(n_tiles: int, n_bnd: int, phase: str) -> slice:
+    """The stream slots of one phase as the JAX package cuts them: the
+    boundary phase is the last `n_bnd` slots, the interior phase the rest."""
+    if not 0 < n_bnd < n_tiles:
+        raise ValueError(f"phase split needs 0 < n_bnd < n_tiles, got "
+                         f"{n_bnd}/{n_tiles}")
+    if phase == "boundary":
+        return slice(n_tiles - n_bnd, n_tiles)
+    if phase == "interior":
+        return slice(0, n_tiles - n_bnd)
+    raise ValueError(f"phase must be 'boundary' or 'interior', got {phase!r}")
+
+
+def _poison_out_of_phase(out: torch.Tensor, tail: int, phase: str):
+    """NaN in the rows a phase does not own, which the kernels leave
+    unwritten: a caller that reads one gets NaN, not a plausible zero."""
+    begin, end = phase_blocks(tail, out.shape[1], phase)
+    out[:, :begin * TILE] = float("nan")
+    out[:, end * TILE:] = float("nan")
+    return out
+
+
+def spmm_phased_plain(rows, cols, vals, h, num_rows: int, split: SplitSpec,
+                      phase: str) -> torch.Tensor:
+    """One phase of z = P·h on its slice of the forward stream; rows
+    outside the phase are NaN."""
+    sl = phase_slots(rows.shape[1], split.fwd_bnd_tiles, phase)
+    z = spmm_plain(rows[:, sl], cols[:, sl], vals[:, sl], h, num_rows)
+    return _poison_out_of_phase(z, split.row_tail, phase)
+
+
+def spmm_t_phased_plain(t_out, t_in, t_perm, vals, dz, num_cols: int,
+                        split: SplitSpec, phase: str) -> torch.Tensor:
+    """One phase of δcomb = Pᵀ·δz on its slice of the transpose stream
+    (vals stays whole: t_perm indexes it); rows outside the phase are NaN."""
+    sl = phase_slots(t_out.shape[1], split.t_bnd_tiles, phase)
+    out = spmm_t_plain(t_out[:, sl], t_in[:, sl], t_perm[:, sl], vals, dz,
+                       num_cols)
+    return _poison_out_of_phase(out, split.col_tail, phase)
+
+
 def spmm_fused_plain(rows, cols, vals, h, w, b, num_rows: int,
                      relu: bool = False, with_z: bool = True):
     """u = (P·h) @ w + b (ReLU'd when `relu`), aggregate first; returns
@@ -128,7 +205,7 @@ def assert_close_to_scale(got, want, what: str = "") -> float:
 # ----------------------------------------------------------------------
 
 _ARGTYPES = {      # C entry point -> (pointer args, int args), then the stream
-    "gcn_spmm": {"gcn_spmm_f32": (6, 6), "gcn_spmm_t_f32": (7, 6)},
+    "gcn_spmm": {"gcn_spmm_f32": (6, 8), "gcn_spmm_t_f32": (7, 8)},
     "gcn_fused": {"gcn_spmm_fused_f32": (9, 8),
                   "gcn_spmm_fused_t_f32": (8, 7)},
 }
@@ -196,6 +273,58 @@ def _raise_on_error(code: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
 
 
+def _output(out, shape, like, name: str) -> torch.Tensor:
+    """The kernel's output: `out` when given (checked), else torch.empty."""
+    if out is None:
+        return torch.empty(shape, device=like.device, dtype=torch.float32)
+    if (out.shape != shape or out.dtype != torch.float32
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {like.device}")
+    return out
+
+
+def _into(out, result: torch.Tensor) -> torch.Tensor:
+    """`result`, copied into `out` when one is given."""
+    return result if out is None else out.copy_(result)
+
+
+def _launch_spmm(row_ptr, live, cols, vals, h, num_rows: int,
+                 blocks: tuple[int, int] | None, name: str,
+                 out=None) -> torch.Tensor:
+    """z = P·h on row blocks `blocks` (all when None); rows outside a block
+    range stay as they were in `out` (torch.empty when None)."""
+    nrb = -(-num_rows // TILE)
+    _check_kernel_args(row_ptr, live, (cols,), vals, h, nrb, name)
+    begin, end = (0, nrb) if blocks is None else blocks
+    p, n = cols.shape
+    z = _output(out, (p, num_rows, h.shape[2]), h, name)
+    code = _library("gcn_spmm").gcn_spmm_f32(
+        row_ptr.data_ptr(), live.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+        h.data_ptr(), z.data_ptr(), p, nrb, begin, end, n, h.shape[1],
+        num_rows, h.shape[2], torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on_error(code, name)
+    return z
+
+
+def _launch_spmm_t(col_ptr, t_live, t_in, t_perm, vals, dz, num_cols: int,
+                   blocks: tuple[int, int] | None, name: str,
+                   out=None) -> torch.Tensor:
+    """δcomb = Pᵀ·δz on column blocks `blocks` (all when None)."""
+    ncb = -(-num_cols // TILE)
+    _check_kernel_args(col_ptr, t_live, (t_in, t_perm), vals, dz, ncb, name)
+    begin, end = (0, ncb) if blocks is None else blocks
+    p, n = t_in.shape
+    out = _output(out, (p, num_cols, dz.shape[2]), dz, name)
+    code = _library("gcn_spmm").gcn_spmm_t_f32(
+        col_ptr.data_ptr(), t_live.data_ptr(), t_in.data_ptr(),
+        t_perm.data_ptr(), vals.data_ptr(), dz.data_ptr(), out.data_ptr(),
+        p, ncb, begin, end, n, dz.shape[1], num_cols, dz.shape[2],
+        torch.cuda.current_stream(dz.device).cuda_stream)
+    _raise_on_error(code, name)
+    return out
+
+
 def spmm(row_ptr, live, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
     """Block-sparse z = P·h over all partitions.
 
@@ -206,16 +335,7 @@ def spmm(row_ptr, live, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
     z (P, num_rows, F). On CUDA: float32 only, one kernel launch."""
     if not h.is_cuda:
         return spmm_plain(rows, cols, vals, h, num_rows)
-    nrb = -(-num_rows // TILE)
-    _check_kernel_args(row_ptr, live, (cols,), vals, h, nrb, "spmm")
-    p, n = cols.shape
-    z = torch.empty(p, num_rows, h.shape[2], device=h.device,
-                    dtype=torch.float32)
-    code = _library("gcn_spmm").gcn_spmm_f32(
-        row_ptr.data_ptr(), live.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-        h.data_ptr(), z.data_ptr(), p, nrb, n, h.shape[1], num_rows, h.shape[2],
-        torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on_error(code, "spmm")
+    z = _launch_spmm(row_ptr, live, cols, vals, h, num_rows, None, "spmm")
     spmm.launches += 1
     return z
 
@@ -235,23 +355,54 @@ def spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
     CUDA: float32 only, one kernel launch."""
     if not dz.is_cuda:
         return spmm_t_plain(t_out, t_in, t_perm, vals, dz, num_cols)
-    ncb = -(-num_cols // TILE)
-    _check_kernel_args(col_ptr, t_live, (t_in, t_perm), vals, dz, ncb,
-                       "spmm_t")
-    p, n = t_in.shape
-    out = torch.empty(p, num_cols, dz.shape[2], device=dz.device,
-                      dtype=torch.float32)
-    code = _library("gcn_spmm").gcn_spmm_t_f32(
-        col_ptr.data_ptr(), t_live.data_ptr(), t_in.data_ptr(),
-        t_perm.data_ptr(), vals.data_ptr(), dz.data_ptr(), out.data_ptr(),
-        p, ncb, n, dz.shape[1], num_cols, dz.shape[2],
-        torch.cuda.current_stream(dz.device).cuda_stream)
-    _raise_on_error(code, "spmm_t")
+    out = _launch_spmm_t(col_ptr, t_live, t_in, t_perm, vals, dz, num_cols,
+                         None, "spmm_t")
     spmm_t.launches += 1
     return out
 
 
 spmm_t.launches = 0
+
+
+def spmm_phased(row_ptr, live, rows, cols, vals, h, num_rows: int,
+                split: SplitSpec, phase: str, out=None) -> torch.Tensor:
+    """One phase ("boundary" or "interior") of z = P·h: arguments as for
+    `spmm`. Only the phase's rows are written (the boundary phase rows
+    from split.row_tail on, the interior phase those before); the others
+    are unspecified on the card and NaN on the CPU, and must not be read.
+    On CUDA: one kernel launch on the phase's row blocks, into `out` (a
+    float32 (P, num_rows, F) tensor) when given."""
+    if not h.is_cuda:
+        return _into(out, spmm_phased_plain(rows, cols, vals, h, num_rows,
+                                            split, phase))
+    blocks = phase_blocks(split.row_tail, num_rows, phase)
+    z = _launch_spmm(row_ptr, live, cols, vals, h, num_rows, blocks,
+                     "spmm_phased", out)
+    spmm_phased.launches += 1
+    return z
+
+
+spmm_phased.launches = 0
+
+
+def spmm_t_phased(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
+                  num_cols: int, split: SplitSpec, phase: str,
+                  out=None) -> torch.Tensor:
+    """One phase of δcomb = Pᵀ·δz: arguments as for `spmm_t`. The boundary
+    phase writes the rows from split.col_tail on, the interior phase those
+    before; the others are unspecified (NaN on the CPU). On CUDA: one
+    kernel launch on the phase's column blocks, into `out` when given."""
+    if not dz.is_cuda:
+        return _into(out, spmm_t_phased_plain(t_out, t_in, t_perm, vals, dz,
+                                              num_cols, split, phase))
+    blocks = phase_blocks(split.col_tail, num_cols, phase)
+    out = _launch_spmm_t(col_ptr, t_live, t_in, t_perm, vals, dz, num_cols,
+                         blocks, "spmm_t_phased", out)
+    spmm_t_phased.launches += 1
+    return out
+
+
+spmm_t_phased.launches = 0
 
 FUSED_MAX_FIN = 512     # 8 blocks of 64 columns: the portable cluster size
 

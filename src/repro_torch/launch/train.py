@@ -6,12 +6,24 @@
 Takes the JAX launcher's gcn flags plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch versions of the kernels). Flags of features
 the port does not run yet exit with an error that names the ROADMAP item.
+
+``--spmd --parts-per-device N`` trains on the torch.distributed backend,
+one process per rank, each holding N partitions (``--partitions`` = ranks
+× N). Start it with torchrun, which sets each process's rank:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --spmd \
+        --parts-per-device 1 --dataset grid-sim --partitions 4 --agg blocksparse
+
+NCCL on ``--device cuda`` (rank r on card r), gloo on ``--device cpu``.
+Without torchrun it runs as a single rank.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import socket
 
 from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.core.health import HealthConfig
@@ -25,11 +37,6 @@ def unported_flags(args) -> list[str]:
     bad = []
     if args.workload != "gcn":
         bad.append("--workload lm (the transformer LM workload is not ported)")
-    if args.spmd or args.parts_per_device != 1:
-        bad.append("--spmd / --parts-per-device (ROADMAP Queue 1 item 7: "
-                   "multi-GPU)")
-    if args.overlap == "split-phase":
-        bad.append("--overlap split-phase (ROADMAP Queue 1 item 6)")
     if args.wire != "f32" or args.slice_boundary:
         bad.append("--wire / --slice-boundary (ROADMAP Queue 1 item 8)")
     if (args.guard_exchange or args.fault_rate > 0.0 or args.elastic
@@ -39,7 +46,55 @@ def unported_flags(args) -> list[str]:
     return bad
 
 
+def init_distributed(device: str) -> str:
+    """Join the default process group (NCCL for a CUDA device, gloo for the
+    CPU) and return this rank's device. Under torchrun the rank and the
+    rendezvous come from its environment; otherwise this process is the
+    only rank, on a free port of 127.0.0.1. A CUDA run needs one card per
+    rank on the host: it never shares a card between ranks."""
+    import torch
+    import torch.distributed as dist
+    if "RANK" in os.environ:
+        rank = int(os.environ["RANK"])
+        world = int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        init = "env://"
+    else:
+        rank, world, local = 0, 1, 0
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            init = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    cuda = device.startswith("cuda")
+    if cuda:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {device} requested but CUDA is not "
+                               "available; pass --device cpu for gloo")
+        if world > torch.cuda.device_count():
+            raise RuntimeError(
+                f"{world} ranks need {world} CUDA cards, this host has "
+                f"{torch.cuda.device_count()}: NCCL ranks do not share a card")
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=init,
+                            rank=rank, world_size=world)
+    return device
+
+
 def run_gcn(args) -> dict:
+    log = print
+    if args.spmd:
+        import torch.distributed as dist
+        args.device = init_distributed(args.device)
+        if dist.get_rank() != 0:
+            log = None
+    try:
+        return _run_gcn(args, log)
+    finally:
+        if args.spmd:
+            dist.destroy_process_group()
+
+
+def _run_gcn(args, log) -> dict:
     pipeline = GraphDataPipeline.build(args.dataset, args.partitions,
                                        kind=args.gcn_kind, seed=args.seed,
                                        agg=args.agg, layout=args.layout,
@@ -59,17 +114,21 @@ def run_gcn(args) -> dict:
     health = HealthConfig(enabled=False) if args.no_health else None
     res = train_pipegcn(pipeline, mc, pc, epochs=args.epochs,
                         lr=args.lr or tpl["lr"], seed=args.seed,
-                        eval_every=args.eval_every, log=print,
-                        health=health, device=args.device)
+                        eval_every=args.eval_every, log=log,
+                        health=health, device=args.device,
+                        parts_per_device=(args.parts_per_device if args.spmd
+                                          else None))
     out = {"workload": "gcn", "dataset": args.dataset,
            "partitions": args.partitions, "variant": args.variant,
            "device": args.device, "agg": args.agg,
            "matmul_order": args.matmul_order, "layout": pipeline.layout,
            "fuse_exchange": pc.fuse_exchange, "overlap": pc.overlap,
+           "spmd": args.spmd, "parts_per_device": args.parts_per_device,
            "anomalies": res.anomalies, "final": res.final_metrics,
            "epochs_per_sec": res.epochs_per_sec, "history": res.history}
-    print(json.dumps({k: out[k] for k in ("final", "epochs_per_sec")},
-                     indent=1))
+    if log:
+        log(json.dumps({k: out[k] for k in ("final", "epochs_per_sec")},
+                       indent=1))
     return out
 
 
@@ -110,12 +169,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--lr", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spmd", action="store_true",
+                    help="train on the torch.distributed backend, one "
+                         "process per rank (start with torchrun)")
+    ap.add_argument("--parts-per-device", type=int, default=1,
+                    help="partitions each rank holds under --spmd")
+    ap.add_argument("--overlap", default="auto",
+                    choices=["auto", "none", "split-phase"],
+                    help="split-phase overlap schedule: auto = split where "
+                         "feasible for the tile engines")
     # Flags of the JAX launcher whose features are not ported yet: accepted
     # so that a JAX command line parses, then refused by unported_flags.
-    ap.add_argument("--spmd", action="store_true")
-    ap.add_argument("--parts-per-device", type=int, default=1)
-    ap.add_argument("--overlap", default="auto",
-                    choices=["auto", "none", "split-phase"])
     ap.add_argument("--wire", default="f32",
                     choices=["f32", "bf16", "int8", "int4", "auto"])
     ap.add_argument("--slice-boundary", action="store_true")
@@ -134,6 +198,8 @@ def main(argv=None):
     bad = unported_flags(args)
     if bad:
         ap.error("not ported to repro_torch yet: " + "; ".join(bad))
+    if args.parts_per_device != 1 and not args.spmd:
+        ap.error("--parts-per-device needs --spmd")
     return run_gcn(args)
 
 

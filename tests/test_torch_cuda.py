@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(float32, ragged row counts and feature widths), the block-sparse SpMM pair
-and the fused aggregate+transform pair. Needs a CUDA card and
-nvcc; skips without a card. Imports no JAX, so it runs on a machine with
+(float32, ragged row counts and feature widths): the block-sparse SpMM
+pair, the fused aggregate+transform pair and the phased SpMM launches of
+the split-phase schedule; and the sim backend's exchange on a side CUDA
+stream. Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
 only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -168,3 +169,104 @@ def test_cuda_fused_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="512"):
         gcn_spmm.spmm_fused(*fwd, torch.randn(1, 256, 520, device="cuda"),
                             torch.randn(520, 8, device="cuda"), b, 128)
+
+
+def _split_pipeline():
+    """grid-tiny, 4 partitions, rcm: a real graph with a split-phase spec."""
+    from repro_torch.data import GraphDataPipeline
+    tp = GraphDataPipeline.build("grid-tiny", 4, agg="blocksparse",
+                                 layout="rcm", device="cuda")
+    assert tp.split_spec() is not None
+    return tp.topo, tp.split_spec()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 64, 72])
+def test_cuda_phased_kernels_match_plain(f):
+    """spmm_phased / spmm_t_phased against their plain versions on the
+    card: in-phase rows within rtol = atol = 1e-5, written into a NaN
+    output (every in-phase row finite, every other row still NaN), and
+    the two phases reassemble the unsplit kernel's output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    topo, sp = _split_pipeline()
+    P, R = topo.num_parts, topo.max_inner
+    C = R + topo.halo_size
+    fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+           topo.tile_cols, topo.tile_vals)
+    bwd = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+           topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
+    h = torch.randn(P, C, f, device="cuda")
+    dz = torch.randn(P, R, f, device="cuda")
+    cases = (
+        (gcn_spmm.spmm_phased, gcn_spmm.spmm_phased_plain, fwd, h, R,
+         sp.row_tail, gcn_spmm.spmm(*fwd, h, R)),
+        (gcn_spmm.spmm_t_phased, gcn_spmm.spmm_t_phased_plain, bwd, dz, C,
+         sp.col_tail, gcn_spmm.spmm_t(*bwd, dz, C)))
+    for kern, plain, args, x, rows, tail, full in cases:
+        got = {}
+        for phase in ("boundary", "interior"):
+            own = slice(tail, None) if phase == "boundary" else slice(0, tail)
+            other = slice(0, tail) if phase == "boundary" else slice(tail, None)
+            out = torch.full((P, rows, f), float("nan"), device="cuda")
+            before = kern.launches
+            got[phase] = kern(*args, x, rows, sp, phase, out=out)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 1
+            assert got[phase].data_ptr() == out.data_ptr()
+            assert torch.isfinite(out[:, own]).all()
+            assert torch.isnan(out[:, other]).all()
+            want = plain(*args[2:], x, rows, sp, phase)
+            torch.testing.assert_close(out[:, own], want[:, own], rtol=1e-5,
+                                       atol=1e-5)
+        whole = torch.cat([got["interior"][:, :tail],
+                           got["boundary"][:, tail:]], dim=1)
+        assert torch.equal(whole, full)
+
+
+@pytest.mark.cuda
+def test_cuda_phased_wrappers_refuse_empty_or_out_of_range_blocks():
+    """An empty phase or a block range off the grid is refused by the
+    wrapper, and by the C entry point itself (cudaErrorInvalidValue)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    topo, sp = _split_pipeline()
+    R = topo.max_inner
+    fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+           topo.tile_cols, topo.tile_vals)
+    h = torch.randn(topo.num_parts, R + topo.halo_size, 16, device="cuda")
+    for bad in (sp._replace(row_tail=0), sp._replace(row_tail=R + 128)):
+        with pytest.raises(ValueError, match="strictly inside"):
+            gcn_spmm.spmm_phased(*fwd, h, R, bad, "interior")
+    nrb = -(-R // 128)
+    for blocks in ((2, 2), (3, 1), (-1, 2), (0, nrb + 1)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            gcn_spmm._launch_spmm(fwd[0], fwd[1], fwd[3], fwd[4], h, R,
+                                  blocks, "spmm_phased")
+    with pytest.raises(ValueError, match="out must be"):
+        gcn_spmm.spmm_phased(*fwd, h, R, sp, "boundary",
+                             out=torch.empty(1, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_side_stream_exchange_equals_the_transpose():
+    """The sim backend's exchange on a side stream: ordered after the
+    producer of the payload, waited on by the compute stream, equal to the
+    synchronous transpose; the payload may be freed before the wait."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.pipegcn import SimBackend
+    be = SimBackend()
+    x = torch.randn(4, 4, 300, 96, device="cuda")
+    want = (x * 2).transpose(0, 1).contiguous()
+    for _ in range(3):
+        s = x * 2                    # produced on the compute stream
+        handle = be.start_exchange(s)
+        del s                        # record_stream keeps its memory safe
+        torch.randn(4096, 4096, device="cuda").sum()   # other work
+        got = handle.wait()
+        assert torch.equal(got, want)
+    payloads = [x[..., :32] * 1, x[..., 32:] * 1]
+    recv = be.start_fused_exchange(payloads).wait()
+    assert [torch.equal(r, p.transpose(0, 1)) for r, p in
+            zip(recv, payloads)] == [True, True]
