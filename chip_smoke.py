@@ -7,6 +7,26 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. build   compile the CUDA kernels from the sources in this checkout
              (one nvcc per source, started together) and print the time.
+  1a. attention  the flash-attention kernel behind ops.attention, fed by the
+             port's attention layer (projections, qk-norm, RoPE; numpy-
+             seeded, x ~ N(0, 1), B = 1) at the full head widths of
+             qwen3-8b (H 32, K 8, d 128; f32 and bf16), starcoder2-3b (H 24,
+             K 2, d 128, window 4096) and recurrentgemma-2b (H 10, K 1,
+             d 256, window 2048), causal at S = 8192, and qwen3-8b not
+             causal at S = 4096. The layers run through the kernel with the
+             launch counts zeroed just before and read just after (one
+             launch per call); each output is held against
+             flash_attention_plain (f32 rtol = atol = 2e-5, the JAX kernel
+             tests' bar; bf16 atol 5e-2, their bar, and every row within
+             1e-2 of its norm), against blockwise_attention (f32 2e-5; bf16
+             rows within 3e-2: it rounds the scores to bf16, as in JAX), and
+             the layer (kernel output @ wo) against the port's
+             self_attention (blockwise at 8192, dense at 4096; f32 relative
+             Frobenius norm <= 1e-5, bf16 rows within 3e-2). Kernel, plain
+             version and scaled_dot_product_attention (the yardstick: in
+             f32 its memory-efficient backend on k and v repeated to H
+             heads, in bf16 the backend it picks; the backend is printed)
+             are timed with CUDA events.
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes (reddit-sim and yelp-sim, 4
              partitions; yelp-sim 2 and grid-sim 4 partitions for the
@@ -465,7 +485,25 @@ def phase_steps(reddit, yelp):
 
 
 KERNELS = ("spmm", "spmm_t", "spmm_fused", "spmm_fused_t", "spmm_phased",
-           "spmm_t_phased")
+           "spmm_t_phased", "flash_attention")
+
+
+def kernel_wrappers() -> dict:
+    """kernel name -> its wrapper, whose `launches` attribute counts the
+    wrapper's kernel launches."""
+    from repro_torch.kernels import flash_attention, gcn_spmm
+    out = {k: getattr(gcn_spmm, k) for k in KERNELS if k != "flash_attention"}
+    out["flash_attention"] = flash_attention.flash_attention
+    return out
+
+
+def reset_launches():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
 
 
 def expected_launches(model, topo, steps: int, evals: int) -> dict:
@@ -533,17 +571,15 @@ def train_run(pipeline, agg, order):
     from repro_torch.core import PipeConfig, PipeGCN, train_pipegcn
     from repro_torch.core.pipegcn import SimBackend
     from repro_torch.core.trace_utils import expected_boundary_collectives
-    from repro_torch.kernels import gcn_spmm
     name = graph_name(pipeline)
     mc, lr = _model_config(pipeline, agg, order)
-    for k in KERNELS:
-        getattr(gcn_spmm, k).launches = 0
+    reset_launches()
     SimBackend.side_copies = 0
     res = train_pipegcn(pipeline, mc, PipeConfig.named("pipegcn"),
                         epochs=EPOCHS, lr=lr, seed=0, eval_every=EVAL_EVERY,
                         log=lambda s: log(f"train {name} {agg}/{order}: {s}"),
                         device="cuda")
-    launches = {k: getattr(gcn_spmm, k).launches for k in KERNELS}
+    launches = read_launches()
     copies = SimBackend.side_copies
     model = PipeGCN(mc, PipeConfig.named("pipegcn"),
                     split=pipeline.split_spec())
@@ -702,6 +738,8 @@ def phase_profile(pipeline, agg):
         "top": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in top]}))
 
 
+ATTENTION_RUN = ("attention layers", "ops.attention", "flash")   # run key
+
 # kernel -> (the TPU kernel it replaces, its CUDA source, the main-path run
 # whose launch count it reports, the shape its times are given at)
 KERNEL_INFO = {
@@ -723,6 +761,10 @@ KERNEL_INFO = {
     "spmm_t_phased": ("src/repro/kernels/gcn_spmm.py:267", "gcn_spmm.cu",
                       ("yelp-sim P=2", "blocksparse", "auto"),
                       dict(graph="yelp-sim P=2", f=512)),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:72",
+                        "flash_attention.cu", ATTENTION_RUN,
+                        dict(arch="qwen3-8b", s=8192, causal=True,
+                             dtype="float32")),
 }
 
 
@@ -980,7 +1022,6 @@ def phase_split(split_pipes):
     blocksparse split (overlap auto) bit-equal to blocksparse unsplit
     (overlap none); fused/auto split (the composed phased path) bit-equal
     to the blocksparse split; exact launch counts of each split run."""
-    from repro_torch.kernels import gcn_spmm
     for pipeline in split_pipes:
         name = graph_name(pipeline)
         unsplit, _ = split_model(pipeline, "blocksparse", "none", dropout=0.0)
@@ -989,10 +1030,9 @@ def phase_split(split_pipes):
         for agg in ("blocksparse", "fused"):
             model, _ = split_model(pipeline, agg, "auto", dropout=0.0)
             assert model._split_active() is not None, (name, agg)
-            for k in KERNELS:
-                getattr(gcn_spmm, k).launches = 0
+            reset_launches()
             results[agg] = _steps(model, pipeline, 2)
-            launches = {k: getattr(gcn_spmm, k).launches for k in KERNELS}
+            launches = read_launches()
             expect = expected_launches(model, pipeline.topo, 2, 0)
             assert launches == expect, (name, agg, launches, expect)
             log(f"split: {name} {agg}/auto 2 steps, launches {launches}, "
@@ -1197,6 +1237,246 @@ def phase_overlap(pipeline, steps: int = 3):
     return res
 
 
+# ---------------------------------------------------------------------
+# The flash-attention slice: the kernel behind ops.attention, fed by the
+# attention layer at the full head widths of three shipped configurations
+# ---------------------------------------------------------------------
+
+# (config, S, causal, dtypes): S = 8192 > BLOCKWISE_THRESHOLD, so the
+# port's self_attention takes its blockwise path there; S = 4096 (not
+# causal) its dense path. The kernel's entry is reported at the first.
+ATTENTION_CASES = (("qwen3-8b", 8192, True, ("float32", "bfloat16")),
+                   ("starcoder2-3b", 8192, True, ("float32",)),
+                   ("recurrentgemma-2b", 8192, True, ("float32",)),
+                   ("qwen3-8b", 4096, False, ("float32",)))
+PEAK_BF16_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense (data sheet)
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 5e-2}   # the JAX kernel tests' bars
+# bf16 rows against the oracles that round the scores to bf16 (blockwise
+# attention and the self_attention layer on it), as the JAX package does
+BF16_ORACLE_ROW_REL = 3e-2
+
+
+def attention_layer_params(cfg, seed: int) -> dict:
+    """The layer's parameters from a numpy seed, as numpy arrays: weights
+    N(0, 1/fan_in), biases 0.1·N(0, 1), qk-norm scales 1 + 0.1·N(0, 1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d, h, k = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    p = {name: rng.standard_normal(shape, dtype=np.float32) / shape[0] ** 0.5
+         for name, shape in (("wq", (d, h * hd)), ("wk", (d, k * hd)),
+                             ("wv", (d, k * hd)), ("wo", (h * hd, d)))}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * hd), ("bk", k * hd), ("bv", k * hd)):
+            p[name] = 0.1 * rng.standard_normal(n, dtype=np.float32)
+    if cfg.qk_norm:
+        for name in ("qnorm", "knorm"):
+            p[name] = 1 + 0.1 * rng.standard_normal(hd, dtype=np.float32)
+    return p
+
+
+def attention_qkv(p, cfg, x, positions):
+    """The layer's q, k, v: projections (bias, qk-norm) and RoPE."""
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import apply_rope
+    q, k, v = _project_qkv(p, cfg, x, x)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def unmasked_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, per batch row and head: key c
+    is unmasked for query r on [max(0, r-window+1), min(r, t-1)] (no lower
+    end without a window, t-1 when not causal)."""
+    import numpy as np
+    r = np.arange(s, dtype=np.int64)
+    hi = np.minimum(r, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(0, r - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _sdpa(q, k, v, causal: bool, window: int):
+    """The library yardstick: scaled_dot_product_attention on the same
+    (B, S, H, d) tensors (viewed as (B, H, S, d)), the window as an additive
+    mask. In f32 its memory-efficient backend, a flash-style kernel that
+    takes f32 and a mask but not GQA, so k and v are repeated to H heads
+    outside the timed call; in bf16 the backend it picks, GQA through
+    enable_gqa. Never the port's path."""
+    import contextlib
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s, t = q.shape[1], k.shape[1]
+    mask = None
+    if window:
+        r = torch.arange(s, device=q.device)[:, None]
+        c = torch.arange(t, device=q.device)[None, :]
+        keep = r - c < window
+        if causal:
+            keep &= c <= r
+        mask = torch.zeros(s, t, dtype=q.dtype, device=q.device)
+        mask.masked_fill_(~keep, float("-inf"))
+    f32 = q.dtype == torch.float32
+    if f32:
+        g = q.shape[2] // k.shape[2]
+        k, v = (x.repeat_interleave(g, dim=2) for x in (k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def run():
+        with (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if f32
+              else contextlib.nullcontext()):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=not f32).transpose(1, 2)
+    return run
+
+
+def _sdpa_backend(fn) -> str:
+    """The device kernel that takes the most time in one call of fn (the
+    SDPA backend PyTorch picked), from a profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not events:
+        return "unknown (no device events)"
+    top = max(events, key=lambda e: getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+    return top.key[:80]
+
+
+def phase_attention():
+    """The flash kernel behind ops.attention at the full head widths of
+    qwen3-8b, starcoder2-3b and recurrentgemma-2b (B = 1; q, k, v from the
+    port's projections and RoPE on a numpy-seeded layer, x ~ N(0, 1)).
+    The main path — every case's layer through ops.attention and wo — runs
+    with the launch counts zeroed just before and read just after: one
+    launch per call. Then each output is held against
+    flash_attention_plain (f32 rtol = atol = 2e-5; bf16 atol 5e-2 and
+    every row within fa.BF16_ROW_REL of its norm), against
+    blockwise_attention (f32 2e-5; bf16 rows within BF16_ORACLE_ROW_REL)
+    and the layer against the port's self_attention (f32 relative
+    Frobenius norm <= 1e-5; bf16 rows within BF16_ORACLE_ROW_REL); kernel,
+    plain version and SDPA are timed with CUDA events. Returns the rows and
+    the main-path run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import (attention_params_from_jax,
+                                              blockwise_attention,
+                                              self_attention)
+    layers = []
+    for i, (arch, s, causal, dtypes) in enumerate(ATTENTION_CASES):
+        cfg = get_arch(arch)
+        log(f"attention: {arch} d_model {cfg.d_model} H {cfg.num_heads} "
+            f"K {cfg.num_kv_heads} d {cfg.resolved_head_dim} qkv_bias "
+            f"{cfg.qkv_bias} qk_norm {cfg.qk_norm} rope_theta "
+            f"{cfg.rope_theta} window {cfg.sliding_window}")
+        np_params = attention_layer_params(cfg, seed=i)
+        x = np.random.default_rng(100 + i).standard_normal(
+            (1, s, cfg.d_model), dtype=np.float32)
+        for dtype in dtypes:
+            td = getattr(torch, dtype)
+            p = {k: v.to(td) for k, v in
+                 attention_params_from_jax(np_params, "cuda").items()}
+            layers.append(dict(arch=arch, cfg=cfg, s=s, causal=causal,
+                               dtype=dtype, p=p,
+                               x=torch.from_numpy(x).to("cuda", td)))
+    pos = torch.arange(max(c[1] for c in ATTENTION_CASES), device="cuda")
+
+    # the main path: each layer through the kernel, counts zeroed around it
+    reset_launches()
+    for lay in layers:
+        cfg, s = lay["cfg"], lay["s"]
+        q, k, v = attention_qkv(lay["p"], cfg, lay["x"], pos[:s])
+        out = ops.attention(q, k, v, causal=lay["causal"],
+                            window=cfg.sliding_window)
+        lay.update(q=q, k=k, v=v, out=out,
+                   y=out.reshape(1, s, -1) @ lay["p"]["wo"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = len(layers)
+    assert launches == want, (launches, want)
+    log(f"attention: {len(layers)} layers through ops.attention, launches "
+        f"{launches['flash_attention']}")
+
+    rows = []
+    for lay in layers:
+        cfg, s, causal, dtype = lay["cfg"], lay["s"], lay["causal"], lay["dtype"]
+        q, k, v, out = lay["q"], lay["k"], lay["v"], lay["out"]
+        w = cfg.sliding_window
+        what = f"{lay['arch']} S={s} {'causal' if causal else 'full'} {dtype}"
+        assert out.shape == q.shape and torch.isfinite(out).all(), what
+        plain = (lambda q=q, k=k, v=v, c=causal, w=w:
+                 fa.flash_attention_plain(q, k, v, causal=c, window=w))
+        want = plain()
+        f32 = dtype == "float32"
+        torch.testing.assert_close(
+            out, want, rtol=2e-5 if f32 else 0, atol=FLASH_ATOL[dtype],
+            msg=lambda m, w=what: f"{w}: {m}")
+        row = dict(arch=lay["arch"], s=s, causal=causal, window=w,
+                   dtype=dtype, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                   head_dim=cfg.resolved_head_dim,
+                   max_abs_err=float((out.float() - want.float()).abs().max()),
+                   mean_abs_out=float(out.float().abs().mean()))
+        if not f32:
+            row["row_rel_err"] = fa.assert_rows_close(
+                out, want, fa.BF16_ROW_REL, what)
+            row["row_rel_limit"] = fa.BF16_ROW_REL
+        del want
+        blockwise = blockwise_attention(q, k, v, pos[:s], causal, w)
+        row["blockwise_max_abs_err"] = float(
+            (out.float() - blockwise.float()).abs().max())
+        if f32:
+            torch.testing.assert_close(out, blockwise, rtol=2e-5, atol=2e-5,
+                                       msg=lambda m, w=what: f"{w}: {m}")
+        else:
+            row["blockwise_row_rel_err"] = fa.assert_rows_close(
+                out, blockwise, BF16_ORACLE_ROW_REL, f"{what} blockwise")
+        del blockwise
+        layer = self_attention(lay["p"], cfg, lay["x"], pos[:s], causal=causal)
+        if f32:
+            row["layer_rel_norm"] = _rel_close(lay["y"], layer, what, rel=1e-5)
+        else:
+            row["layer_row_rel_err"] = fa.assert_rows_close(
+                lay["y"], layer, BF16_ORACLE_ROW_REL, f"{what} layer")
+        del layer
+        kern = (lambda q=q, k=k, v=v, c=causal, w=w:
+                fa.flash_attention(q, k, v, causal=c, window=w))
+        lib = _sdpa(q, k, v, causal, w)
+        row["library_max_abs_err"] = float((lib().float()
+                                            - out.float()).abs().max())
+        row["library"] = "sdpa: " + _sdpa_backend(lib)
+        row["ms"] = cuda_time_ms(kern, 5)
+        row["plain_ms"] = cuda_time_ms(plain, 2)
+        row["library_ms"] = cuda_time_ms(lib, 5)
+        es = q.element_size()
+        pairs = unmasked_pairs(s, s, causal, w)
+        flops = 4.0 * q.shape[-1] * pairs * q.shape[0] * q.shape[2]
+        nbytes = es * (2 * q.numel() + k.numel() + v.numel())
+        peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        row.update(bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                   tflops=flops / row["ms"] / 1e9)
+        rows.append(row)
+        log("attention: " + json.dumps(row))
+    del layers
+    torch.cuda.empty_cache()
+    log(f"attention: phase took {time.perf_counter() - t0:.1f} s")
+    return rows, dict(launches=launches)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1212,12 +1492,13 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.data import GraphDataPipeline
-    from repro_torch.core.pipegcn import exact_f32_matmul
+    from repro_torch.device import exact_f32_matmul
     exact_f32_matmul()
     t_start = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda})")
     phase_build()
+    attention_rows, attention_run = phase_attention()
     pipelines = {}
     for name in ("reddit-sim", "yelp-sim"):
         t0 = time.perf_counter()
@@ -1256,6 +1537,8 @@ def main(argv) -> int:
     if "--profile" in argv:
         for agg in ("blocksparse", "fused"):
             phase_profile(reddit, agg)
+    rows["flash_attention"] = attention_rows
+    runs[ATTENTION_RUN] = attention_run
     kernels = [kernel_entry(name, rows[name], runs) for name in KERNELS]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line(), flush=True)

@@ -3,9 +3,10 @@ and the trainer."""
 from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.core.health import HealthConfig, TrainingAnomalyError
 from repro_torch.core.pipegcn import (PipeGCN, ShardedData, Topology,
-                                      params_from_jax, resolve_device,
-                                      shard_data, topology_from)
+                                      params_from_jax, shard_data,
+                                      topology_from)
 from repro_torch.core.trainer import TrainResult, make_train_step, train_pipegcn
+from repro_torch.device import resolve_device
 
 __all__ = [
     "ModelConfig", "PipeConfig", "HealthConfig", "TrainingAnomalyError",

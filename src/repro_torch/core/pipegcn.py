@@ -57,29 +57,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import ModelConfig, PipeConfig
+from repro_torch.device import exact_f32_matmul, resolve_device
 from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
 from repro_torch.graph.reorder import TILE_ENGINES
 from repro_torch.kernels.aggregate import get_engine
 from repro_torch.kernels.gcn_spmm import (TILE, SplitSpec, live_lengths,
                                           run_pointers)
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on. The default is the card; asking
-    for CUDA without one raises — the port never drops to the CPU unless
-    the caller passes ``device="cpu"``."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; pass "
-            "device='cpu' to run the port on the CPU")
-    return dev
-
-
-def exact_f32_matmul():
-    """Keep the dense products in full float32 on the card (no TF32): the
-    JAX package computes them in f32 and the kernels use f32 FMA."""
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 class Topology(NamedTuple):

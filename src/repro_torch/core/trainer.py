@@ -20,8 +20,9 @@ import torch
 from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.core.health import (HealthConfig, TrainingAnomalyError,
                                      health_check, tree_select)
-from repro_torch.core.pipegcn import PipeGCN, SpmdBackend, resolve_device
+from repro_torch.core.pipegcn import PipeGCN, SpmdBackend
 from repro_torch.core.trace_utils import expected_boundary_collectives
+from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import Optimizer, adam
 
 

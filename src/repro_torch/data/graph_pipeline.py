@@ -13,9 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.pipegcn import (ShardedData, Topology, resolve_device,
-                                      shard_data, split_spec_from,
-                                      topology_from)
+from repro_torch.core.pipegcn import (ShardedData, Topology, shard_data,
+                                      split_spec_from, topology_from)
+from repro_torch.device import resolve_device
 from repro_torch.graph.csr import mean_normalized, sym_normalized
 from repro_torch.graph.halo import PartitionedGraph, build_partitioned_graph
 from repro_torch.graph.partition import partition_graph

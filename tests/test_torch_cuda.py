@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
 (float32, ragged row counts and feature widths): the block-sparse SpMM
 pair, the fused aggregate+transform pair and the phased SpMM launches of
-the split-phase schedule; and the sim backend's exchange on a side CUDA
+the split-phase schedule; flash attention in float32 and bfloat16 at every
+head width it is built for; and the sim backend's exchange on a side CUDA
 stream. Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
 only the port's dependencies:
 
@@ -270,3 +271,96 @@ def test_cuda_side_stream_exchange_equals_the_transpose():
     recv = be.start_fused_exchange(payloads).wait()
     assert [torch.equal(r, p.transpose(0, 1)) for r, p in
             zip(recv, payloads)] == [True, True]
+
+
+# (B, S, T, H, K, causal, window, block): the CPU sweep's GQA groups and
+# masks (tests/test_torch_attention.py), a ragged S and T (not multiples of
+# the kernel's 64-row tiles), T > S, and T < S with rows that have no
+# unmasked key (queries 227 on: the mean of v)
+FLASH_CARD_CASES = [
+    (1, 256, 256, 4, 4, True, 0, 128),
+    (2, 256, 256, 4, 2, True, 192, 128),
+    (1, 512, 512, 4, 1, True, 100, 128),
+    (1, 384, 384, 8, 2, False, 0, 128),
+    (1, 512, 512, 8, 2, False, 192, 128),
+    (2, 96, 160, 2, 1, True, 40, 32),
+    (1, 128, 384, 4, 2, True, 0, 128),
+    (1, 512, 128, 4, 2, False, 100, 128),
+]
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(d, dtype):
+    """flash_attention against flash_attention_plain on the card, one
+    launch per call: f32 within rtol = atol = 2e-5, bf16 within atol 5e-2
+    (the JAX kernel tests' bars) and every bf16 row within
+    fa.BF16_ROW_REL of its norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.device import exact_f32_matmul
+    from repro_torch.kernels import flash_attention as fa
+    exact_f32_matmul()
+    rng = np.random.default_rng(d)
+    for case in FLASH_CARD_CASES:
+        b, s, t, h, kh, causal, window, blk = case
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dtype)
+            for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_block=blk, kv_block=blk)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        assert got.dtype == dtype and got.shape == (b, s, h, d)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, q_block=blk,
+                                        kv_block=blk)
+        rtol = 2e-5 if dtype == torch.float32 else 0
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=FLASH_ATOL[dtype],
+                                   msg=lambda m, c=case: f"{c}: {m}")
+        if dtype == torch.bfloat16:
+            fa.assert_rows_close(got, want, fa.BF16_ROW_REL, str(case))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_inputs():
+    """q, k, v as slices of one packed (B, S, H + 2K, d) projection: the
+    kernel reads them through their strides, bit-equal to contiguous
+    copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+    packed = torch.randn(2, 192, 8 + 2 * 2, 128, device="cuda")
+    q, k, v = packed[:, :, :8], packed[:, :, 8:10], packed[:, :, 10:]
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v, window=64, q_block=64, kv_block=64)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              window=64, q_block=64, kv_block=64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_the_kernel_does_not_take():
+    """A head dim it is not built for, float64, mixed dtypes, a strided
+    head dim axis, and a negative window (refused by the C entry point)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.randn(1, 128, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        y = torch.randn(1, 128, 2, 48, device="cuda")
+        fa.flash_attention(y, y, y, q_block=64, kv_block=64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(x.double(), x.double(), x.double(), q_block=64,
+                           kv_block=64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(x, x.bfloat16(), x, q_block=64, kv_block=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        z = torch.randn(1, 128, 2, 128, device="cuda")[..., ::2]
+        fa.flash_attention(z, z, z, q_block=64, kv_block=64)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fa.flash_attention(x, x, x, window=-1, q_block=64, kv_block=64)
