@@ -34,9 +34,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
              version and a yardstick with CUDA events:
              - spmm / spmm_t at every width the main paths run them at
                (reddit-sim F = 128, 256, 16; yelp-sim F = 120, 512, 24),
-               assert_close(rtol=1e-5, atol=1e-5); yardstick a library
-               call (a block-sparse BSR product where PyTorch runs it for
-               f32, else a dense matmul of the densified shard);
+               assert_close(rtol=1e-5, atol=1e-5), and bit-equal to the
+               same kernels on the schedules that walk every stream slot
+               (zero tiles too); yardstick a library call (a block-sparse
+               BSR product where PyTorch runs it for f32, else a dense
+               matmul of the densified shard). Each call prints what it
+               walks: work items, tiles walked (asserted equal to the
+               nonzero tiles), the longest item (at most SCHED_CHUNK), and
+               its kernel instance's registers, shared memory and TF32
+               tensor-core instructions (phase build reads them from the
+               library with cuobjdump, and fails on a non-TF32 HMMA);
              - spmm_fused at every shape the fused runs launch it at
                (F_in→F_out, reddit-sim: 128→256, 256→256 and 256→16, each
                with and without z, 128→256 and 256→256 also with the ReLU
@@ -54,18 +61,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
                bit-equal to the unsplit kernel; times per phase beside the
                unsplit kernel's; yardstick the BSR product of each phase's
                tiles.
-  3. steps   2 training steps at dropout 0 through the kernels and 2 through
-             the plain COO engine on the card, at each dataset's full-width
-             GraphSAGE model: reddit-sim with agg=blocksparse (auto order)
+  3. steps   2 training steps at dropout 0 through the kernels (f32) and 2
+             through the plain COO engine in float64 on the card (an exact
+             reference: the bound is the kernel path's own error), at each
+             dataset's full-width GraphSAGE model: reddit-sim with
+             agg=blocksparse (auto order)
              and agg=fused (aggregate-first, which runs spmm_fused_t, and
              auto), yelp-sim with agg=fused (auto); plus one reddit-sim GCN
              eval forward through the fused kernels (in-kernel ReLU); loss,
-             grads and buffers agree to 1e-3 in relative Frobenius norm,
-             ||a - b|| / ||b|| (f32 through 4 layers with other summation
-             orders, and ReLU masks that may flip where a pre-activation
-             lies within f32 rounding of 0: a flip moves a few elements by
-             a discrete amount, so an elementwise bound would fail on
-             correct code; a wrong tile moves the norm by far more).
+             grads and buffers agree to STEP_REL = 5e-4 in relative
+             Frobenius norm, ||a - b|| / ||b|| (f32 through 4 layers with
+             other summation orders, and ReLU masks that may flip where a
+             pre-activation lies within f32 rounding of 0: a flip moves a
+             few elements by a discrete amount, so an elementwise bound
+             would fail on correct code; a wrong tile moves the norm by
+             far more). The COO engine in f32 runs beside them, and its
+             reading against the f64 reference is printed with theirs.
   4. split   the split-phase step at full width, 2 steps at dropout 0 on
              yelp-sim P=2 (GraphSAGE, feat 120, hidden 512, 4 layers, BCE)
              and grid-sim P=4 (feat 32, hidden 64, 3 layers): the
@@ -99,6 +110,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
              (the traces are kept under build/traces/).
+Bounds of the GCN kernels (spmm pair, phased pair, fused pair): bound_ms =
+max(bytes / 3.35 TB/s, 3·flops / 495 TFLOP/s), the least time of
+f32-accurate (3×TF32) work on the tensor cores; bound_fma_ms beside it
+counts the flops at the f32 FMA rate of 67 TFLOP/s.
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last the {"ok": true, "device": {...}} line.
 """
@@ -115,6 +130,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
+PEAK_TF32_FLOPS = 495e12   # H100 SXM TF32 tensor cores, dense (data sheet)
 EPOCHS = 5
 EVAL_EVERY = 10
 
@@ -138,18 +154,87 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# (transpose, FB) -> registers of that spmm kernel instance and its count
+# of TF32 tensor-core instructions (cuobjdump -res-usage and -sass)
+SPMM_BUILD = {}
+
+
 def phase_build():
+    import re
     from repro_torch.kernels import _build
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         results = dict(zip(sources, pool.map(_build.build, sources)))
     log(f"build: {len(sources)} CUDA sources in {time.perf_counter() - t0:.2f} s")
+    inst = re.compile(r"spmm_items_kernelILb([01])ELi(\d+)E")
     for name, (path, report) in results.items():
         log(f"build: {name} -> {os.path.relpath(path, ROOT)}")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
+    # the spmm kernels' registers and tensor-core instructions, read from
+    # the built library (also when it came from the build cache)
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    lib = str(results["gcn_spmm"][0])
+    regs, hmma, key = {}, {}, None
+    for line in subprocess.run([cuobjdump, "-res-usage", lib], check=True,
+                               capture_output=True, text=True).stdout.splitlines():
+        m = inst.search(line)
+        if "Function" in line:
+            key = (m.group(1) == "1", int(m.group(2))) if m else None
+        elif key and "REG:" in line:
+            regs[key] = int(line.split("REG:")[1].split()[0])
+    for line in subprocess.run([cuobjdump, "-sass", lib], check=True,
+                               capture_output=True, text=True).stdout.splitlines():
+        m = inst.search(line)
+        if "Function :" in line:
+            key = (m.group(1) == "1", int(m.group(2))) if m else None
+        elif key and "HMMA" in line:
+            op = "HMMA" + line.split("HMMA")[1].split()[0]
+            hmma.setdefault(key, {}).setdefault(op, 0)
+            hmma[key][op] += 1
+    assert set(regs) == set(hmma) and len(regs) == 10, (regs, hmma)
+    for key, ops in sorted(hmma.items()):
+        assert all("TF32" in op for op in ops), (key, ops)
+        SPMM_BUILD[key] = (regs[key], sum(ops.values()))
+        log(f"build: spmm_items_kernel<transpose={key[0]}, FB={key[1]}>: "
+            f"{regs[key]} registers, SASS tensor-core ops {ops}")
+
+
+def gcn_bound(flops: float, nbytes: float) -> dict:
+    """The least time of a GCN kernel at f32 accuracy: the larger of the
+    bytes at the memory rate and 3×TF32 on the tensor cores (3·flops at
+    495 TFLOP/s); beside it bound_fma_ms, the f32-FMA figure (flops at 67
+    TFLOP/s) these rows were held to before the tensor-core kernels."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_fma_ms=1e3 * max(flops / PEAK_F32_FLOPS, t_bytes),
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def schedule_stats(items, blocks, transpose: bool, f: int, n_nonzero: int):
+    """What one spmm call walks: its work items (those of the output
+    blocks `blocks`), the tiles they walk, which must equal the call's
+    n_nonzero tiles, and the longest item, at most SCHED_CHUNK; with the
+    kernel instance's registers, shared memory and TF32 tensor-core
+    instruction count."""
+    from repro_torch.kernels import gcn_spmm
+    it = items.cpu().numpy()
+    b, e = blocks
+    sel = (it[..., 0] >= b) & (it[..., 0] < e)
+    walked = (it[..., 2] - it[..., 1])[sel]
+    fb = gcn_spmm.feature_block(f)
+    out = dict(items=int(sel.sum()), tiles_walked=int(walked.sum()),
+               nonzero_tiles=n_nonzero, longest_item=int(walked.max()),
+               chunk=gcn_spmm.SCHED_CHUNK, fb=fb, slices=-(-f // fb),
+               registers=SPMM_BUILD[transpose, fb][0],
+               smem_bytes=gcn_spmm.smem_bytes(fb),
+               tf32_mma_in_sass=SPMM_BUILD[transpose, fb][1])
+    assert out["tiles_walked"] == n_nonzero, out
+    assert out["longest_item"] <= gcn_spmm.SCHED_CHUNK, out
+    return out
 
 
 def _bsr_operand(topo, transpose: bool, only=None):
@@ -230,32 +315,32 @@ def _spmm_rows(topo, graph, widths):
     P, n = topo.tile_rows.shape
     R = topo.max_inner
     C = R + topo.halo_size
+    nrb, ncb = -(-R // 128), -(-C // 128)
     n_nz = int((topo.tile_vals.abs().amax(dim=(-1, -2)) > 0).sum())
     gen = torch.Generator(device="cuda").manual_seed(0)
     libs = {False: _library_call(topo, False), True: _library_call(topo, True)}
-    full = torch.full((P,), n, dtype=torch.int32, device="cuda")
+    # the schedules that walk every stream slot, the zero padding and
+    # filler tiles too, as the Pallas grid does
+    full = topo.with_schedules(walk_all=True)
     for f in widths:
         h = torch.randn(P, C, f, device="cuda", generator=gen)
         dz = torch.randn(P, R, f, device="cuda", generator=gen)
-        fwd = (lambda h=h: gcn_spmm.spmm(
-            topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
-            topo.tile_cols, topo.tile_vals, h, R))
+        fwd = (lambda h=h, s=(topo.tile_work, topo.tile_items): gcn_spmm.spmm(
+            *s, topo.tile_rows, topo.tile_cols, topo.tile_vals, h, R))
         fwd_plain = (lambda h=h: gcn_spmm.spmm_plain(
             topo.tile_rows, topo.tile_cols, topo.tile_vals, h, R))
-        bwd = (lambda dz=dz: gcn_spmm.spmm_t(
-            topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
-            topo.tile_t_in, topo.tile_t_perm, topo.tile_vals, dz, C))
+        bwd = (lambda dz=dz, s=(topo.tile_t_work, topo.tile_t_items):
+               gcn_spmm.spmm_t(*s, topo.tile_t_out, topo.tile_t_in,
+                               topo.tile_t_perm, topo.tile_vals, dz, C))
         bwd_plain = (lambda dz=dz: gcn_spmm.spmm_t_plain(
             topo.tile_t_out, topo.tile_t_in, topo.tile_t_perm,
             topo.tile_vals, dz, C))
-        # the same kernels walking every stream slot (live length = stream
-        # length), i.e. the zero padding tiles too, as the Pallas grid does
-        fwd_full = (lambda h=h: gcn_spmm.spmm(
-            topo.tile_row_ptr, full, topo.tile_rows, topo.tile_cols,
-            topo.tile_vals, h, R))
-        bwd_full = (lambda dz=dz: gcn_spmm.spmm_t(
-            topo.tile_col_ptr, full, topo.tile_t_out, topo.tile_t_in,
-            topo.tile_t_perm, topo.tile_vals, dz, C))
+        fwd_full = (lambda h=h, s=(full.tile_work, full.tile_items):
+                    gcn_spmm.spmm(*s, topo.tile_rows, topo.tile_cols,
+                                  topo.tile_vals, h, R))
+        bwd_full = (lambda dz=dz, s=(full.tile_t_work, full.tile_t_items):
+                    gcn_spmm.spmm_t(*s, topo.tile_t_out, topo.tile_t_in,
+                                    topo.tile_t_perm, topo.tile_vals, dz, C))
         for name, kern, kern_full, plain, x, in_rows, out_rows, tr in (
                 ("spmm", fwd, fwd_full, fwd_plain, h, C, R, False),
                 ("spmm_t", bwd, bwd_full, bwd_plain, dz, R, C, True)):
@@ -263,7 +348,7 @@ def _spmm_rows(topo, graph, widths):
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
             assert torch.equal(kern_full(), got)
-            # A/B in turns (cut, full, full, cut) inside this one run
+            # A/B in turns (nonzero, all slots, all slots, nonzero)
             ab = [cuda_time_ms(k, 20) for k in (kern, kern_full, kern_full, kern)]
             err = float((got - want).abs().max())
             lib_name, lib_fn, in_pad = libs[tr]
@@ -273,22 +358,22 @@ def _spmm_rows(topo, graph, widths):
             flops = 2.0 * n_nz * 128 * 128 * f
             nbytes = (n_nz * 128 * 128 * 4 + P * in_rows * f * 4
                       + P * out_rows * f * 4)
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+            items = topo.tile_t_items if tr else topo.tile_items
+            sched = schedule_stats(items, (0, ncb if tr else nrb), tr, f, n_nz)
             row = dict(graph=graph, f=f, max_abs_err=err,
                        ms=(ab[0] + ab[3]) / 2,
                        ms_full_stream=(ab[1] + ab[2]) / 2, ab_ms=ab,
                        plain_ms=cuda_time_ms(plain, 5),
                        library=lib_name,
                        library_ms=cuda_time_ms(lambda: lib_fn(lib_in), 10),
-                       library_max_abs_err=lib_err,
-                       bound_ms=1e3 * max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                       library_max_abs_err=lib_err, schedule=sched,
+                       **gcn_bound(flops, nbytes))
             log(f"kernels: {name} {graph} F={f} max_abs_err {err:.3g} "
-                f"kernel {row['ms']:.4f} ms (full stream "
-                f"{row['ms_full_stream']:.4f} ms) plain {row['plain_ms']:.4f} ms "
-                f"{lib_name} {row['library_ms']:.4f} ms "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"kernel {row['ms']:.4f} ms (every slot "
+                f"{row['ms_full_stream']:.4f} ms, bit-equal) plain "
+                f"{row['plain_ms']:.4f} ms {lib_name} {row['library_ms']:.4f} "
+                f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 "
+                f"FMA {row['bound_fma_ms']:.4f}); {json.dumps(sched)}")
             yield name, row
     log(f"kernels: {graph} {n_nz} nonzero 128x128 tiles over {P} partitions "
         f"({n} stream slots each)")
@@ -341,17 +426,15 @@ def phase_fused_kernels(topos):
                 topo.max_inner + topo.halo_size, n_nz)
 
     def record(kernel, row, flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        row.update(bound_ms=1e3 * max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        row.update(gcn_bound(flops, nbytes))
         rows[kernel].append(row)
         log(f"kernels: {kernel} {row['graph']} F_in {row['fin']} F_out "
             f"{row['fout']}{' z' if row.get('with_z') else ''}"
             f"{' relu' if row.get('relu') else ''} max_abs_err "
             f"{row['max_abs_err']:.3g} kernel {row['ms']:.4f} ms composed "
             f"{row['composed_ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 FMA "
+            f"{row['bound_fma_ms']:.4f})")
 
     for name, fin, fout, with_z, relu in fwd_cases:
         topo, fields, P, R, C, n_nz = shapes(name)
@@ -419,12 +502,44 @@ def _rel_close(a, b, what, rel=1e-3):
     return diff / scale if scale else 0.0
 
 
+def _float64(data):
+    """ShardedData with its float fields in float64."""
+    import torch
+    return data._replace(**{k: v.to(torch.float64)
+                            for k, v in data._asdict().items()
+                            if v.is_floating_point()})
+
+
+# Bound of phase "steps": the kernel path (f32, deterministic) against the
+# COO engine in float64, in relative norm per leaf. On an H100 it reads
+# 2.16e-4 (reddit-sim) and 2.28e-4 (yelp-sim), the same in every run; the
+# COO engine in f32, whose atomic scatter order flips its own ReLUs,
+# reads from 4.5e-4 to 9.4e-4 on yelp-sim against the same reference.
+STEP_REL = 5e-4
+
+
+def _leaf_diffs(run, ref, what, rel):
+    """Relative norm diffs of a run's (loss, grads, buffers) against the
+    reference's, each checked against `rel`."""
+    (lk, gk, bk), (lp, gp, bp) = run, ref
+    diffs = [_rel_close(lk.reshape(1), lp.reshape(1), f"{what} loss", rel)]
+    diffs += [_rel_close(gk[k], gp[k], f"{what} grad {k}", rel) for k in gp]
+    for kind in ("feat", "grad"):
+        diffs += [_rel_close(a, b, f"{what} {kind}[{ell}]", rel)
+                  for ell, (a, b) in enumerate(zip(bk[kind], bp[kind]))]
+    return diffs
+
+
 def phase_steps(reddit, yelp):
-    """2 training steps through the kernels vs 2 through the COO engine,
-    each at its dataset's full-width model with dropout 0: reddit-sim for
-    each tile engine and order, yelp-sim for the fused engine under auto;
-    then a GCN eval forward through the fused kernels (their in-kernel
-    ReLU) vs the COO engine."""
+    """2 training steps through the kernels (f32) vs 2 through the COO
+    engine in float64 on the card, each at its dataset's full-width model
+    with dropout 0: reddit-sim for each tile engine and order, yelp-sim
+    for the fused engine under auto; then a GCN eval forward through the
+    fused kernels (their in-kernel ReLU) vs the COO engine in float64. The
+    f64 reference carries no rounding of its own, so STEP_REL bounds the
+    f32 kernel path alone. The COO engine in f32 runs beside it, and its
+    reading against the same reference is printed: an f32 reference adds
+    its own ReLU flips to the kernels'."""
     import dataclasses
     import torch
     from repro_torch.core import PipeConfig, PipeGCN
@@ -444,43 +559,57 @@ def phase_steps(reddit, yelp):
                   for a in (agg, "coo")}
         params0 = models["coo"].init_params(
             torch.Generator(device="cuda").manual_seed(0))
-        state = {a: (dict(params0), m.init_buffers(pipeline.topo))
-                 for a, m in models.items()}
-        diffs = []
+        runs = {"kernels": (models[agg], pipeline.topo, pipeline.train_data),
+                "coo-f32": (models["coo"], pipeline.topo,
+                            pipeline.train_data),
+                "coo-f64": (models["coo"], pipeline.topo.to(torch.float64),
+                            _float64(pipeline.train_data))}
+        state = {r: ({k: v.to(data.x.dtype) for k, v in params0.items()},
+                     m.init_buffers(topo, dtype=data.x.dtype))
+                 for r, (m, topo, data) in runs.items()}
+        diffs, ref_diffs = [], []
         for t in range(2):
             out = {}
-            for a, m in models.items():
-                params, bufs = state[a]
-                loss, grads, bufs, logits = m.train_step(
-                    pipeline.topo, params, bufs, pipeline.train_data)
-                out[a] = (loss, grads, bufs, logits)
-                state[a] = ({k: params[k] - 0.01 * grads[k] for k in params},
+            for r, (m, topo, data) in runs.items():
+                params, bufs = state[r]
+                loss, grads, bufs, logits = m.train_step(topo, params, bufs,
+                                                         data)
+                out[r] = (loss, grads, bufs, logits)
+                state[r] = ({k: params[k] - 0.01 * grads[k] for k in params},
                             bufs)
-            (lk, gk, bk, zk), (lp, gp, bp, zp) = out[agg], out["coo"]
+            zk, zp = out["kernels"][3], out["coo-f64"][3]
             assert zk.shape == (4, pipeline.topo.max_inner, ds.num_classes)
+            assert zk.dtype == torch.float32 and zp.dtype == torch.float64
             what = f"{ds.name} {agg}/{order} step {t}"
-            diffs.append(_rel_close(lk.reshape(1), lp.reshape(1),
-                                    f"{what} loss"))
-            diffs += [_rel_close(gk[k], gp[k], f"{what} grad {k}") for k in gp]
-            for kind in ("feat", "grad"):
-                diffs += [_rel_close(a, b, f"{what} {kind}[{ell}]")
-                          for ell, (a, b) in enumerate(zip(bk[kind], bp[kind]))]
-            log(f"steps: {what} loss kernels {float(lk):.6f} "
-                f"plain-coo {float(lp):.6f}")
+            step = _leaf_diffs(out["kernels"][:3], out["coo-f64"][:3], what,
+                               STEP_REL)
+            ref = _leaf_diffs(out["coo-f32"][:3], out["coo-f64"][:3],
+                              f"{what} coo-f32", rel=1e-2)
+            diffs += step
+            ref_diffs += ref
+            log(f"steps: {what} loss kernels {float(out['kernels'][0]):.6f} "
+                f"coo-f32 {float(out['coo-f32'][0]):.6f} coo-f64 "
+                f"{float(out['coo-f64'][0]):.6f}; worst leaf vs coo-f64: "
+                f"kernels {max(step):.3g}, coo-f32 {max(ref):.3g}")
         log(f"steps: {ds.name} {agg}/{order} worst relative norm diff "
-            f"{max(diffs):.3g}")
+            f"{max(diffs):.3g} (coo-f32 vs coo-f64 {max(ref_diffs):.3g})")
         worst = max(worst, *diffs)
     gcn = {a: PipeGCN(config(reddit, a, "aggregate-first", kind="gcn"),
                       PipeConfig())
            for a in ("fused", "coo")}
     params = gcn["coo"].init_params(
         torch.Generator(device="cuda").manual_seed(0))
-    logits = {a: m.forward(reddit.topo, params, reddit.val_data)[1]
-              for a, m in gcn.items()}
+    logits = {
+        "fused": gcn["fused"].forward(reddit.topo, params,
+                                      reddit.val_data)[1],
+        "coo": gcn["coo"].forward(
+            reddit.topo.to(torch.float64),
+            {k: v.double() for k, v in params.items()},
+            _float64(reddit.val_data))[1]}
     worst = max(worst, _rel_close(logits["fused"], logits["coo"],
-                                  "gcn eval forward logits"))
+                                  "gcn eval forward logits", STEP_REL))
     log(f"steps: loss, grads and buffers agree (worst relative norm diff "
-        f"{worst:.3g} <= 1e-3)")
+        f"{worst:.3g} <= {STEP_REL})")
     return worst
 
 
@@ -790,6 +919,8 @@ def kernel_entry(name, rows, runs) -> dict:
         entry["library"] = main_row["library"]
     else:   # no single PyTorch call computes the fused function
         entry["composed_ms"] = main_row["composed_ms"]
+    if "bound_fma_ms" in main_row:   # the GCN kernels: the f32-FMA bound
+        entry["bound_fma_ms"] = main_row["bound_fma_ms"]
     for k in ("boundary_ms", "interior_ms", "unsplit_ms"):   # phased pair
         if k in main_row:
             entry[k] = main_row[k]
@@ -867,9 +998,9 @@ def phase_phased_kernels(split_pipes):
         widths = phased_widths(model, topo)
         P, n = topo.tile_rows.shape
         R, C = topo.max_inner, topo.max_inner + topo.halo_size
-        fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+        fwd = (topo.tile_work, topo.tile_items, topo.tile_rows,
                topo.tile_cols, topo.tile_vals)
-        bwd = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+        bwd = (topo.tile_t_work, topo.tile_t_items, topo.tile_t_out,
                topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
         libs = {tr: {ph: _library_call(topo, tr, _phase_keep(topo, sp, tr, ph))
                      for ph in ("boundary", "interior")}
@@ -936,14 +1067,16 @@ def phase_phased_kernels(split_pipes):
                     nbytes += 4.0 * (n_nz * 128 * 128
                                      + min(n_in * 128, in_rows * P) * f
                                      + P * ph_rows * f)
-                    # the longest run one block walks (zero pads included)
-                    # and the phase's zero slots, over all partitions
+                    # what the phase's launch walks, beside the longest
+                    # run of stream slots and the zero slots it skips
                     lo, hi = gcn_spmm.phase_blocks(tail, out_rows, ph)
                     runs[ph] = dict(
-                        longest_run=int((ptr[:, lo + 1:hi + 1]
-                                         - ptr[:, lo:hi]).max()),
-                        zero_slots=(slots.stop - slots.start) * P - n_nz)
-                t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+                        schedule_stats(bwd[1] if transpose else fwd[1],
+                                       (lo, hi), transpose, f, n_nz),
+                        longest_run_slots=int((ptr[:, lo + 1:hi + 1]
+                                               - ptr[:, lo:hi]).max()),
+                        zero_slots_skipped=(slots.stop - slots.start) * P
+                        - n_nz)
                 lib_in = _pad_rows(x, libs[transpose]["boundary"][2])
                 lib_ms = sum(cuda_time_ms(lambda fn=libs[transpose][ph][1]:
                                           fn(lib_in), 10)
@@ -954,19 +1087,17 @@ def phase_phased_kernels(split_pipes):
                            plain_ms=cuda_time_ms(
                                lambda: (plain("boundary"), plain("interior")), 5),
                            library=libs[transpose]["boundary"][0],
-                           library_ms=lib_ms,
-                           bound_ms=1e3 * max(t_ops, t_bytes),
-                           bound_by="operations" if t_ops >= t_bytes else "bytes",
-                           gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                           runs=runs)
+                           library_ms=lib_ms, runs=runs,
+                           **gcn_bound(flops, nbytes))
                 rows[kernel].append(row)
                 log(f"kernels: {kernel} {row['graph']} F={f} max_abs_err "
                     f"{err:.3g} boundary {bnd_ms:.4f} ms interior "
                     f"{int_ms:.4f} ms (pair {row['ms']:.4f}) unsplit "
                     f"{row['unsplit_ms']:.4f} ms plain {row['plain_ms']:.4f} "
                     f"ms {row['library']} {lib_ms:.4f} ms bound "
-                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}); runs "
-                    f"{json.dumps(runs)}; phases reassemble bit-equal, "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; f32 FMA "
+                    f"{row['bound_fma_ms']:.4f}); {json.dumps(runs)}; phases "
+                    "reassemble bit-equal, "
                     "out-of-phase rows untouched")
     return rows
 
@@ -1207,7 +1338,7 @@ def phase_overlap(pipeline, steps: int = 3):
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if e.get("ph") == "X"
             and e.get("cat") in ("kernel", "gpu_memcpy")]
-    spmm = [e for e in kern if "spmm_tiles_kernel" in e["name"]]
+    spmm = [e for e in kern if "spmm_items_kernel" in e["name"]]
     assert spmm, "the profile shows no spmm kernel on the device"
     main = spmm[0]["args"]["stream"]
     side = [e for e in kern if e["args"].get("stream") != main]

@@ -51,6 +51,7 @@ With ``staleness_steps`` k > 1 each buffer gains a leading FIFO axis of k.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -61,8 +62,9 @@ from repro_torch.device import exact_f32_matmul, resolve_device
 from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
 from repro_torch.graph.reorder import TILE_ENGINES
 from repro_torch.kernels.aggregate import get_engine
-from repro_torch.kernels.gcn_spmm import (TILE, SplitSpec, live_lengths,
-                                          run_pointers)
+from repro_torch.kernels.gcn_spmm import (SCHED_CHUNK, TILE, SplitSpec,
+                                          live_lengths, run_pointers,
+                                          tile_schedules)
 
 
 class Topology(NamedTuple):
@@ -74,7 +76,10 @@ class Topology(NamedTuple):
     pointers ``tile_row_ptr`` / ``tile_col_ptr`` index the row-sorted
     forward stream and the column-sorted transpose stream per output block;
     ``tile_live`` / ``tile_t_live`` are the streams' live lengths (past
-    them only zero padding tiles remain).
+    them only zero padding tiles remain); the fused kernels walk those.
+    ``tile_work`` / ``tile_items`` (``tile_t_work`` / ``tile_t_items`` for
+    the transpose) are the nonzero-tile work lists and work items of
+    ``gcn_spmm.tile_schedule`` that the spmm kernels walk.
     """
 
     edge_row: torch.Tensor    # (P, max_nnz) int32
@@ -93,6 +98,10 @@ class Topology(NamedTuple):
     tile_col_ptr: torch.Tensor | None = None  # (P, ncb+1) int32
     tile_live: torch.Tensor | None = None     # (P,) int32
     tile_t_live: torch.Tensor | None = None   # (P,) int32
+    tile_work: torch.Tensor | None = None     # (P, W, 2) int32
+    tile_items: torch.Tensor | None = None    # (P, I, 5) int32
+    tile_t_work: torch.Tensor | None = None   # (P, W', 2) int32
+    tile_t_items: torch.Tensor | None = None  # (P, I', 5) int32
 
     @property
     def num_parts(self) -> int:
@@ -109,6 +118,20 @@ class Topology(NamedTuple):
     @property
     def halo_size(self) -> int:
         return self.num_parts * self.slot
+
+    def with_schedules(self, chunk: int = SCHED_CHUNK,
+                       walk_all: bool = False) -> "Topology":
+        """The same topology with the spmm kernels' schedules rebuilt from
+        its tile streams (`gcn_spmm.tile_schedules`: work items of at most
+        `chunk` nonzero tiles; every slot walked with `walk_all`)."""
+        host = SimpleNamespace(**{
+            k: getattr(self, "tile_" + k).cpu().numpy()
+            for k in ("rows", "cols", "vals", "t_out", "t_in", "t_perm")})
+        sch = tile_schedules(host, self.max_inner,
+                             self.max_inner + self.halo_size, chunk, walk_all)
+        return self._replace(**{
+            "tile_" + k: torch.from_numpy(v).to(self.tile_vals.device)
+            for k, v in sch.items()})
 
     def to(self, dtype: torch.dtype) -> "Topology":
         """The same topology with its float fields (edge and tile weights)
@@ -130,8 +153,8 @@ class ShardedData(NamedTuple):
 def topology_from(pg: PartitionedGraph, with_tiles: bool = False,
                   device="cuda") -> Topology:
     """Lift a PartitionedGraph to tensors on `device`; `with_tiles=True`
-    also extracts the block-sparse tile streams, their run pointers and
-    their live lengths."""
+    also extracts the block-sparse tile streams, their run pointers, their
+    live lengths and the spmm kernels' schedules."""
     dev = resolve_device(device)
 
     def t(a):
@@ -148,7 +171,9 @@ def topology_from(pg: PartitionedGraph, with_tiles: bool = False,
                      tile_row_ptr=t(run_pointers(pt.rows, nrb)),
                      tile_col_ptr=t(run_pointers(pt.t_out, ncb)),
                      tile_live=t(live_lengths(pt.vals)),
-                     tile_t_live=t(live_lengths(pt.vals, pt.t_perm)))
+                     tile_t_live=t(live_lengths(pt.vals, pt.t_perm)),
+                     **{"tile_" + k: t(v) for k, v in tile_schedules(
+                         pt, pg.max_inner, pg.combined).items()})
     return Topology(
         edge_row=t(pg.edge_row), edge_col=t(pg.edge_col),
         edge_w=t(pg.edge_w), send_idx=t(pg.send_idx),

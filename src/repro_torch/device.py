@@ -19,5 +19,7 @@ def resolve_device(device="cuda") -> torch.device:
 
 def exact_f32_matmul():
     """Keep the dense products in full float32 on the card (no TF32): the
-    JAX package computes them in f32 and the kernels use f32 FMA."""
+    JAX package computes them in f32, and the port's kernels keep f32
+    accuracy (f32 FMA, or 3×TF32 on the tensor cores in the spmm pair);
+    plain TF32 would not."""
     torch.backends.cuda.matmul.allow_tf32 = False

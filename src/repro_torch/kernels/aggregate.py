@@ -126,36 +126,38 @@ class CooEngine(AggregationEngine):
                     num_cols)
 
 
+def _named(fields: tuple[str, ...], names: tuple[str, ...]):
+    """tslice (a tuple over `fields`) -> the tuple of its fields `names`."""
+    at = [fields.index(n) for n in names]
+    return lambda tslice: tuple(tslice[i] for i in at)
+
+
 class BlockSparseEngine(AggregationEngine):
-    """Block-sparse aggregation on the tile streams (see gcn_spmm)."""
+    """Block-sparse aggregation on the tile streams (see gcn_spmm): the
+    spmm kernels' schedules and streams, in their argument order."""
 
     name = "blocksparse"
-    fields = ("tile_row_ptr", "tile_live", "tile_rows", "tile_cols",
-              "tile_vals", "tile_col_ptr", "tile_t_live", "tile_t_out",
-              "tile_t_in", "tile_t_perm")
+    spmm_args = ("tile_work", "tile_items", "tile_rows", "tile_cols",
+                 "tile_vals")
+    spmm_t_args = ("tile_t_work", "tile_t_items", "tile_t_out", "tile_t_in",
+                   "tile_t_perm", "tile_vals")
+    fields = tuple(dict.fromkeys(spmm_args + spmm_t_args))
+    _fwd = staticmethod(_named(fields, spmm_args))
+    _bwd = staticmethod(_named(fields, spmm_t_args))
 
     def spmm(self, tslice, comb, num_rows: int):
-        row_ptr, live, rows, cols, vals = tslice[:5]
-        return gcn_spmm.spmm(row_ptr, live, rows, cols, vals,
-                             comb.contiguous(), num_rows)
+        return gcn_spmm.spmm(*self._fwd(tslice), comb.contiguous(), num_rows)
 
     def spmm_t(self, tslice, dz, num_cols: int):
-        vals = tslice[4]
-        col_ptr, t_live, t_out, t_in, t_perm = tslice[5:]
-        return gcn_spmm.spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals,
-                               dz.contiguous(), num_cols)
+        return gcn_spmm.spmm_t(*self._bwd(tslice), dz.contiguous(), num_cols)
 
     def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
-        row_ptr, live, rows, cols, vals = tslice[:5]
-        return gcn_spmm.spmm_phased(row_ptr, live, rows, cols, vals,
-                                    comb.contiguous(), num_rows, split, phase)
+        return gcn_spmm.spmm_phased(*self._fwd(tslice), comb.contiguous(),
+                                    num_rows, split, phase)
 
     def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
-        vals = tslice[4]
-        col_ptr, t_live, t_out, t_in, t_perm = tslice[5:]
-        return gcn_spmm.spmm_t_phased(col_ptr, t_live, t_out, t_in, t_perm,
-                                      vals, dz.contiguous(), num_cols, split,
-                                      phase)
+        return gcn_spmm.spmm_t_phased(*self._bwd(tslice), dz.contiguous(),
+                                      num_cols, split, phase)
 
 
 class FusedBlockSparseEngine(BlockSparseEngine):
@@ -163,24 +165,31 @@ class FusedBlockSparseEngine(BlockSparseEngine):
 
     The primitive spmm/spmm_t (the transform-first ordering) and the
     phased pair are inherited; the `aggregate_transform*` pair runs the
-    single-pass fused kernels (``gcn_spmm.spmm_fused`` / ``spmm_fused_t``).
-    The split-phase schedule runs this engine through the composed phased
-    path: the fused epilogue would push the unwritten out-of-phase rows
-    through the dense weight."""
+    single-pass fused kernels (``gcn_spmm.spmm_fused`` / ``spmm_fused_t``)
+    on the streams' run pointers and live lengths. The split-phase
+    schedule runs this engine through the composed phased path: the fused
+    epilogue would push the unwritten out-of-phase rows through the dense
+    weight."""
 
     name = "fused"
+    fused_args = ("tile_row_ptr", "tile_live", "tile_rows", "tile_cols",
+                  "tile_vals")
+    fused_t_args = ("tile_col_ptr", "tile_t_live", "tile_t_out", "tile_t_in",
+                    "tile_t_perm", "tile_vals")
+    fields = tuple(dict.fromkeys(fused_args + fused_t_args
+                                 + BlockSparseEngine.fields))
+    _fwd = staticmethod(_named(fields, BlockSparseEngine.spmm_args))
+    _bwd = staticmethod(_named(fields, BlockSparseEngine.spmm_t_args))
+    _fused = staticmethod(_named(fields, fused_args))
+    _fused_t = staticmethod(_named(fields, fused_t_args))
 
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
                             relu: bool = False, with_z: bool = True):
-        row_ptr, live, rows, cols, vals = tslice[:5]
-        return gcn_spmm.spmm_fused(row_ptr, live, rows, cols, vals, comb, w,
-                                   b, num_rows, relu=relu, with_z=with_z)
+        return gcn_spmm.spmm_fused(*self._fused(tslice), comb, w, b,
+                                   num_rows, relu=relu, with_z=with_z)
 
     def aggregate_transform_t(self, tslice, du, w, num_cols: int):
-        vals = tslice[4]
-        col_ptr, t_live, t_out, t_in, t_perm = tslice[5:]
-        return gcn_spmm.spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm,
-                                     vals, du, w, num_cols)
+        return gcn_spmm.spmm_fused_t(*self._fused_t(tslice), du, w, num_cols)
 
 
 ENGINES = {e.name: e for e in (CooEngine(), BlockSparseEngine(),

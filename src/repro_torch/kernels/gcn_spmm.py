@@ -9,8 +9,8 @@ of tiles. The two products run on hand-written CUDA kernels for Hopper
 (``csrc/gcn_spmm.cu``), which replace the Pallas kernels
 ``spmm_block_sparse`` and ``spmm_block_sparse_t``:
 
-    spmm(row_ptr, live, rows, cols, vals, h, num_rows)            z = P·h
-    spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz, num_cols)
+    spmm(work, items, rows, cols, vals, h, num_rows)              z = P·h
+    spmm_t(t_work, t_items, t_out, t_in, t_perm, vals, dz, num_cols)
                                                                  δcomb = Pᵀ·δz
 
 The fused aggregate+transform pair (``csrc/gcn_fused.cu``) replaces the
@@ -35,12 +35,16 @@ partition). A CUDA tensor goes to the kernel and a CPU tensor to the plain
 PyTorch version beside it (``spmm_plain`` / ``spmm_t_plain``, the einsum +
 ``index_add_`` form of the JAX package's dense oracle, and
 ``spmm_fused_plain`` / ``spmm_fused_t_plain``, those plus a dense product);
-nothing falls back from one to the other. The kernels use the
-per-partition run pointers (``run_pointers``) over the sorted streams, cut
-at each stream's live length (``live_lengths``: the slots past the last
-nonzero tile hold only padding); the plain versions walk the whole block
-index streams. Each wrapper's ``launches`` attribute counts its kernel
-launches.
+nothing falls back from one to the other. The spmm kernels walk only the
+nonzero tiles, from a schedule built once per topology
+(``tile_schedule``): each output block's run of nonzero tiles cut into
+work items of at most ``SCHED_CHUNK`` tiles, one thread block each, whose
+partial sums the run's last block adds in chunk order; they multiply on
+the tensor cores in 3×TF32, at f32 accuracy. The fused kernels use the
+run pointers (``run_pointers``) over the sorted streams, cut at each
+stream's live length (``live_lengths``: the slots past the last nonzero
+tile hold only padding). The plain versions walk the whole block index
+streams. Each wrapper's ``launches`` attribute counts its kernel launches.
 
 Tile extraction (``build_tile_topology`` and the padding helpers) is a
 numpy copy of the JAX package's and builds the same arrays byte for byte.
@@ -205,7 +209,7 @@ def assert_close_to_scale(got, want, what: str = "") -> float:
 # ----------------------------------------------------------------------
 
 _ARGTYPES = {      # C entry point -> (pointer args, int args), then the stream
-    "gcn_spmm": {"gcn_spmm_f32": (6, 8), "gcn_spmm_t_f32": (7, 8)},
+    "gcn_spmm": {"gcn_spmm_f32": (7, 11), "gcn_spmm_t_f32": (7, 11)},
     "gcn_fused": {"gcn_spmm_fused_f32": (9, 8),
                   "gcn_spmm_fused_t_f32": (8, 7)},
 }
@@ -289,53 +293,104 @@ def _into(out, result: torch.Tensor) -> torch.Tensor:
     return result if out is None else out.copy_(result)
 
 
-def _launch_spmm(row_ptr, live, cols, vals, h, num_rows: int,
+def feature_block(f: int) -> int:
+    """Feature columns one thread block of the spmm kernels covers: the
+    narrowest of 8, 16, 32 and 64 that holds F, else 128 (then F/128
+    column slices, each its own block)."""
+    return next((fb for fb in (8, 16, 32, 64) if f <= fb), 128)
+
+
+def smem_bytes(fb: int) -> int:
+    """Dynamic shared memory of one spmm thread block at column block fb,
+    as the built kernels use it."""
+    fn = _library("gcn_spmm").gcn_spmm_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(fb)
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, dtype: torch.dtype, n: int) -> torch.Tensor:
+    """A zeroed buffer of at least n elements of `dtype` on `device`, kept
+    for later launches. The int32 one holds the arrival counters, one per
+    (partition, output block, column slice) of a launch: the last block to
+    arrive at a counter sets it back to zero. The float32 one holds the
+    (128, FB) partials of the work items of runs cut in several items,
+    written and read within one launch. Launches that share them must be
+    ordered on one stream, as the port's compute stream orders them."""
+    buf = _WORKSPACE.get((device, dtype))
+    if buf is None or buf.numel() < n:
+        buf = _WORKSPACE[device, dtype] = torch.zeros(
+            max(n, 1 << 12), dtype=dtype, device=device)
+    return buf
+
+
+def _check_schedule(work, items, vals, x, name: str):
+    """Device, dtype, shape and contiguity checks before an spmm launch."""
+    tensors = [work, items, vals, x]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on {x.device}")
+    if x.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 tiles and "
+                        f"features, got {vals.dtype} / {x.dtype}")
+    if work.dtype != torch.int32 or items.dtype != torch.int32:
+        raise TypeError(f"{name}: the work list and items must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if vals.data_ptr() % 16 or work.data_ptr() % 8:   # 16- and 8-byte loads
+        raise ValueError(f"{name}: vals must start on a 16-byte boundary "
+                         "and work on an 8-byte one")
+    p = vals.shape[0]
+    if (x.dim() != 3 or x.shape[0] != p or vals.dim() != 4
+            or vals.shape[2:] != (TILE, TILE)
+            or work.dim() != 3 or work.shape[::2] != (p, 2)
+            or items.dim() != 3 or items.shape[::2] != (p, ITEM_FIELDS)):
+        raise ValueError(f"{name}: inconsistent shapes work "
+                         f"{tuple(work.shape)}, items {tuple(items.shape)}, "
+                         f"vals {tuple(vals.shape)}, input {tuple(x.shape)}")
+
+
+def _launch_spmm(transpose: bool, work, items, vals, x, num_out: int,
                  blocks: tuple[int, int] | None, name: str,
                  out=None) -> torch.Tensor:
-    """z = P·h on row blocks `blocks` (all when None); rows outside a block
-    range stay as they were in `out` (torch.empty when None)."""
-    nrb = -(-num_rows // TILE)
-    _check_kernel_args(row_ptr, live, (cols,), vals, h, nrb, name)
-    begin, end = (0, nrb) if blocks is None else blocks
-    p, n = cols.shape
-    z = _output(out, (p, num_rows, h.shape[2]), h, name)
-    code = _library("gcn_spmm").gcn_spmm_f32(
-        row_ptr.data_ptr(), live.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-        h.data_ptr(), z.data_ptr(), p, nrb, begin, end, n, h.shape[1],
-        num_rows, h.shape[2], torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on_error(code, name)
-    return z
-
-
-def _launch_spmm_t(col_ptr, t_live, t_in, t_perm, vals, dz, num_cols: int,
-                   blocks: tuple[int, int] | None, name: str,
-                   out=None) -> torch.Tensor:
-    """δcomb = Pᵀ·δz on column blocks `blocks` (all when None)."""
-    ncb = -(-num_cols // TILE)
-    _check_kernel_args(col_ptr, t_live, (t_in, t_perm), vals, dz, ncb, name)
-    begin, end = (0, ncb) if blocks is None else blocks
-    p, n = t_in.shape
-    out = _output(out, (p, num_cols, dz.shape[2]), dz, name)
-    code = _library("gcn_spmm").gcn_spmm_t_f32(
-        col_ptr.data_ptr(), t_live.data_ptr(), t_in.data_ptr(),
-        t_perm.data_ptr(), vals.data_ptr(), dz.data_ptr(), out.data_ptr(),
-        p, ncb, begin, end, n, dz.shape[1], num_cols, dz.shape[2],
-        torch.cuda.current_stream(dz.device).cuda_stream)
+    """z = P·x (Pᵀ·x when `transpose`) on output blocks `blocks` (all when
+    None); rows outside a block range stay as they were in `out`
+    (torch.empty when None)."""
+    nb = -(-num_out // TILE)
+    _check_schedule(work, items, vals, x, name)
+    begin, end = (0, nb) if blocks is None else blocks
+    p, n_tiles = vals.shape[:2]
+    f = x.shape[2]
+    fb = feature_block(f)
+    slices = -(-f // fb)
+    n_items = items.shape[1]
+    out = _output(out, (p, num_out, f), x, name)
+    scratch = _workspace(x.device, torch.float32,
+                         p * n_items * slices * TILE * fb)
+    counters = _workspace(x.device, torch.int32, p * nb * slices)
+    lib = _library("gcn_spmm")
+    fn = lib.gcn_spmm_t_f32 if transpose else lib.gcn_spmm_f32
+    code = fn(work.data_ptr(), items.data_ptr(), vals.data_ptr(),
+              x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+              counters.data_ptr(), p, work.shape[1], n_items, nb, begin, end,
+              n_tiles, x.shape[1], num_out, f, fb,
+              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(code, name)
     return out
 
 
-def spmm(row_ptr, live, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
+def spmm(work, items, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
     """Block-sparse z = P·h over all partitions.
 
-    row_ptr (P, nrb+1) int32 run pointers over the row-sorted forward
-    stream and live (P,) int32 its live lengths (the kernel's); rows
-    (P, n_tiles) int32 row blocks (the plain version's); cols (P, n_tiles)
-    int32 column blocks; vals (P, n_tiles, T, T); h (P, C, F); returns
-    z (P, num_rows, F). On CUDA: float32 only, one kernel launch."""
+    work (P, W, 2) and items (P, I, 5) int32, the forward schedule of
+    `tile_schedule` (the kernel's); rows, cols (P, n_tiles) int32 row and
+    column blocks (the plain version's); vals (P, n_tiles, T, T); h
+    (P, C, F); returns z (P, num_rows, F). On CUDA: float32 only, one
+    kernel launch."""
     if not h.is_cuda:
         return spmm_plain(rows, cols, vals, h, num_rows)
-    z = _launch_spmm(row_ptr, live, cols, vals, h, num_rows, None, "spmm")
+    z = _launch_spmm(False, work, items, vals, h, num_rows, None, "spmm")
     spmm.launches += 1
     return z
 
@@ -343,20 +398,20 @@ def spmm(row_ptr, live, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
 spmm.launches = 0
 
 
-def spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
+def spmm_t(t_work, t_items, t_out, t_in, t_perm, vals, dz,
            num_cols: int) -> torch.Tensor:
     """Block-sparse δcomb = Pᵀ·δz over all partitions, reusing the forward
     tile values through t_perm.
 
-    col_ptr (P, ncb+1) int32 run pointers over the column-sorted transpose
-    stream and t_live (P,) int32 its live lengths (the kernel's); t_out
-    (the plain version's), t_in, t_perm (P, n_tiles) int32; vals
+    t_work / t_items the transpose schedule of `tile_schedule` (the
+    kernel's; its work list holds t_perm and t_in of the nonzero slots);
+    t_out, t_in, t_perm (P, n_tiles) int32 (the plain version's); vals
     (P, n_tiles, T, T); dz (P, R, F); returns δcomb (P, num_cols, F). On
     CUDA: float32 only, one kernel launch."""
     if not dz.is_cuda:
         return spmm_t_plain(t_out, t_in, t_perm, vals, dz, num_cols)
-    out = _launch_spmm_t(col_ptr, t_live, t_in, t_perm, vals, dz, num_cols,
-                         None, "spmm_t")
+    out = _launch_spmm(True, t_work, t_items, vals, dz, num_cols, None,
+                       "spmm_t")
     spmm_t.launches += 1
     return out
 
@@ -364,19 +419,20 @@ def spmm_t(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
 spmm_t.launches = 0
 
 
-def spmm_phased(row_ptr, live, rows, cols, vals, h, num_rows: int,
+def spmm_phased(work, items, rows, cols, vals, h, num_rows: int,
                 split: SplitSpec, phase: str, out=None) -> torch.Tensor:
     """One phase ("boundary" or "interior") of z = P·h: arguments as for
     `spmm`. Only the phase's rows are written (the boundary phase rows
     from split.row_tail on, the interior phase those before); the others
     are unspecified on the card and NaN on the CPU, and must not be read.
-    On CUDA: one kernel launch on the phase's row blocks, into `out` (a
-    float32 (P, num_rows, F) tensor) when given."""
+    On CUDA: one kernel launch on the phase's row blocks (the work items
+    of those blocks, the same as in `spmm`), into `out` (a float32
+    (P, num_rows, F) tensor) when given."""
     if not h.is_cuda:
         return _into(out, spmm_phased_plain(rows, cols, vals, h, num_rows,
                                             split, phase))
     blocks = phase_blocks(split.row_tail, num_rows, phase)
-    z = _launch_spmm(row_ptr, live, cols, vals, h, num_rows, blocks,
+    z = _launch_spmm(False, work, items, vals, h, num_rows, blocks,
                      "spmm_phased", out)
     spmm_phased.launches += 1
     return z
@@ -385,7 +441,7 @@ def spmm_phased(row_ptr, live, rows, cols, vals, h, num_rows: int,
 spmm_phased.launches = 0
 
 
-def spmm_t_phased(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
+def spmm_t_phased(t_work, t_items, t_out, t_in, t_perm, vals, dz,
                   num_cols: int, split: SplitSpec, phase: str,
                   out=None) -> torch.Tensor:
     """One phase of δcomb = Pᵀ·δz: arguments as for `spmm_t`. The boundary
@@ -396,8 +452,8 @@ def spmm_t_phased(col_ptr, t_live, t_out, t_in, t_perm, vals, dz,
         return _into(out, spmm_t_phased_plain(t_out, t_in, t_perm, vals, dz,
                                               num_cols, split, phase))
     blocks = phase_blocks(split.col_tail, num_cols, phase)
-    out = _launch_spmm_t(col_ptr, t_live, t_in, t_perm, vals, dz, num_cols,
-                         blocks, "spmm_t_phased", out)
+    out = _launch_spmm(True, t_work, t_items, vals, dz, num_cols, blocks,
+                       "spmm_t_phased", out)
     spmm_t_phased.launches += 1
     return out
 
@@ -494,6 +550,92 @@ def live_lengths(vals: np.ndarray, t_perm: np.ndarray | None = None) -> np.ndarr
     n = nonzero.shape[1]
     last = n - np.argmax(nonzero[:, ::-1], axis=1)
     return np.where(nonzero.any(axis=1), last, 0).astype(np.int32)
+
+
+# Nonzero tiles per work item. One item is one thread block's serial walk,
+# so C bounds the longest chain on the card: a run of k nonzero tiles is
+# spread over ceil(k/C) blocks, whose (128, F) partials the run's last
+# block adds. `python -m repro_torch.launch.bench_spmm --chunks 16,8,4,2`
+# on an H100 (ms of one call at C = 16 / 8 / 4 / 2): the narrow widths
+# gain from the extra blocks in flight (yelp-sim F = 24: 0.134 / 0.119 /
+# 0.096 / 0.093; F = 120: 0.328 / 0.285 / 0.256 / 0.274), the wide ones
+# stay level (reddit-sim F = 256: 0.694 / 0.650 / 0.654 / 0.709) until the
+# partials' bytes and the serial sum of a long run's partials catch up at
+# C = 2. C = 4 is the best over the main paths' widths.
+SCHED_CHUNK = 4
+ITEM_FIELDS = 5     # (output block, first entry, end entry, chunk, chunks)
+
+
+def tile_schedule(ptr: np.ndarray, nonzero: np.ndarray, tile: np.ndarray,
+                  in_blk: np.ndarray, chunk: int = SCHED_CHUNK,
+                  walk_all: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """The work list and work items the CUDA kernels walk, per partition.
+
+    ptr (P, nb+1) run pointers of a block-sorted stream; nonzero (P, n)
+    whether slot s holds a nonzero tile; tile (P, n) the value-array index
+    of slot s (s itself forward, t_perm[s] for the transpose); in_blk (P, n)
+    its input block. Returns
+
+      work  (P, W, 2) int32: (value-array tile, input block) of the
+            nonzero slots, grouped by output block in stream order;
+      items (P, I, 5) int32: (output block r, first work entry, end work
+            entry, chunk c, chunks n), sorted by (r, c): output block r's
+            nonzero run cut into n ≥ 1 chunks of at most `chunk` tiles (one
+            empty item when the run has none, so the block is still
+            written). Pads at the tails have r = -1.
+
+    Chunk boundaries are set by counting nonzero tiles. With `walk_all`
+    the work list holds every slot instead, zero tiles included, and each
+    item runs from its first nonzero slot to the next item's (the first
+    from the run's start, the last to its end): the same items, each
+    summing the same nonzero tiles in the same order plus exact zeros, so
+    both lists give the same result bit for bit. A block range of a phase
+    is a contiguous item range, the same items as in the unsplit call.
+    The arrays lead with the partition axis, so a rank's view of the
+    topology (``rank_view``) narrows them like every other field."""
+    P, nb = ptr.shape[0], ptr.shape[1] - 1
+    works, items = [], []
+    for p in range(P):
+        ent = np.arange(ptr[p, -1]) if walk_all else np.flatnonzero(nonzero[p])
+        pos = np.searchsorted(ent, ptr[p])          # run r = ent[pos[r]:pos[r+1]]
+        rows = []
+        for r in range(nb):
+            a, b = int(pos[r]), int(pos[r + 1])
+            nz = a + np.flatnonzero(nonzero[p, ent[a:b]])  # entries of nonzero slots
+            n = max(1, -(-len(nz) // chunk))
+            cuts = [a] + [int(nz[c * chunk]) for c in range(1, n)] + [b]
+            rows += [(r, cuts[c], cuts[c + 1], c, n) for c in range(n)]
+        works.append(np.stack([tile[p, ent], in_blk[p, ent]], axis=-1))
+        items.append(np.asarray(rows, np.int64).reshape(-1, ITEM_FIELDS))
+    n_work = max(1, max(len(w) for w in works))
+    n_items = max(len(i) for i in items)
+    work = np.zeros((P, n_work, 2), np.int32)
+    item = np.tile(np.array([-1, 0, 0, 0, 1], np.int32), (P, n_items, 1))
+    for p in range(P):
+        work[p, :len(works[p])] = works[p]
+        item[p, :len(items[p])] = items[p]
+    return work, item
+
+
+def tile_schedules(streams, num_rows: int, num_cols: int,
+                   chunk: int = SCHED_CHUNK,
+                   walk_all: bool = False) -> dict[str, np.ndarray]:
+    """The forward and transpose schedules (`tile_schedule`) of stacked
+    (P, n) tile streams: {"work", "items", "t_work", "t_items"}. `streams`
+    holds them as numpy attributes rows, cols, vals, t_out, t_in and t_perm
+    (a ``PartitionTiles``, say); P has num_rows rows and num_cols columns.
+    ``Topology.with_schedules`` rebuilds a topology's schedules with it."""
+    rows, vals = streams.rows, streams.vals
+    nonzero = np.abs(vals).max(axis=(-1, -2)) > 0
+    t_perm = np.asarray(streams.t_perm, np.int64)
+    slots = np.broadcast_to(np.arange(rows.shape[1]), rows.shape)
+    work, items = tile_schedule(run_pointers(rows, -(-num_rows // TILE)),
+                                nonzero, slots, streams.cols, chunk, walk_all)
+    t_work, t_items = tile_schedule(
+        run_pointers(streams.t_out, -(-num_cols // TILE)),
+        np.take_along_axis(nonzero, t_perm, axis=1), t_perm, streams.t_in,
+        chunk, walk_all)
+    return dict(work=work, items=items, t_work=t_work, t_items=t_items)
 
 
 # ----------------------------------------------------------------------

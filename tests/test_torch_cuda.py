@@ -8,6 +8,8 @@ only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -32,29 +34,35 @@ def _random_streams(rows, cols, nnz, parts=3, seed=0):
             for k in ("rows", "cols", "vals", "t_out", "t_in", "t_perm")}
 
 
+def _schedules(streams, rows, cols, walk_all=False):
+    """The spmm kernels' schedules of stacked numpy streams, on the card."""
+    sch = gcn_spmm.tile_schedules(SimpleNamespace(**streams), rows, cols,
+                                  walk_all=walk_all)
+    return {k: torch.from_numpy(v).cuda() for k, v in sch.items()}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("f", [128, 256, 16])
+@pytest.mark.parametrize("f", [128, 256, 16, 4, 24, 120, 512])
 def test_cuda_kernels_match_plain(f):
     """The CUDA kernels against their plain versions on the card, f32, at a
-    ragged row count: run with a card (see README)."""
+    ragged row count, with zero padding tiles at the stream tails: run
+    with a card (see README)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     streams = _random_streams(300, 1000, 2000)
+    live = gcn_spmm.live_lengths(streams["vals"])
+    assert (live < streams["rows"].shape[1]).any()   # padding gets skipped
     dev = "cuda"
     st = {k: torch.from_numpy(v).to(dev) for k, v in streams.items()}
-    rp = torch.from_numpy(gcn_spmm.run_pointers(streams["rows"], 3)).to(dev)
-    cp = torch.from_numpy(gcn_spmm.run_pointers(streams["t_out"], 8)).to(dev)
-    live = gcn_spmm.live_lengths(streams["vals"])
-    t_live = gcn_spmm.live_lengths(streams["vals"], streams["t_perm"])
-    assert (live < streams["rows"].shape[1]).any()   # padding gets skipped
-    live, t_live = torch.from_numpy(live).to(dev), torch.from_numpy(t_live).to(dev)
+    sch = _schedules(streams, 300, 1000)
     parts = streams["rows"].shape[0]
     before = (gcn_spmm.spmm.launches, gcn_spmm.spmm_t.launches)
     h = torch.randn(parts, 1000, f, device=dev)
     dz = torch.randn(parts, 300, f, device=dev)
-    z = gcn_spmm.spmm(rp, live, st["rows"], st["cols"], st["vals"], h, 300)
-    d = gcn_spmm.spmm_t(cp, t_live, st["t_out"], st["t_in"], st["t_perm"],
-                        st["vals"], dz, 1000)
+    z = gcn_spmm.spmm(sch["work"], sch["items"], st["rows"], st["cols"],
+                      st["vals"], h, 300)
+    d = gcn_spmm.spmm_t(sch["t_work"], sch["t_items"], st["t_out"],
+                        st["t_in"], st["t_perm"], st["vals"], dz, 1000)
     torch.testing.assert_close(
         z, gcn_spmm.spmm_plain(st["rows"], st["cols"], st["vals"], h, 300),
         rtol=1e-5, atol=1e-5)
@@ -66,21 +74,91 @@ def test_cuda_kernels_match_plain(f):
         before[0] + 1, before[1] + 1)
 
 
+def _long_run_streams(parts=2, seed=0):
+    """Shards of 330 × 330 blocks: row block 0 reads 320 column blocks and
+    column block 1 is read by 320 row blocks (runs of 320+ slots in both
+    streams), 5% dense tiles of weight ~1/40; blocks 320-329 are empty
+    (zero filler tiles); the phase-aware padding puts zero tiles in the
+    middle of both long runs (row block 0, column block 1)."""
+    rng = np.random.default_rng(seed)
+    n = 330 * 128
+    tts = []
+    for _ in range(parts):
+        coo = []
+        for rb, cb in [(0, c) for c in range(320)] + [(r, 1) for r in range(1, 320)]:
+            mask = rng.random((128, 128)) < 0.05
+            r, c = np.nonzero(mask)
+            coo.append((rb * 128 + r, cb * 128 + c))
+        r = np.concatenate([a for a, _ in coo])
+        c = np.concatenate([b for _, b in coo])
+        v = (rng.standard_normal(len(r)) / 40).astype(np.float32)
+        tt = gcn_spmm.build_tile_topology(r, c, v, n, n)
+        cut_f = int(np.searchsorted(tt.rows, 1))
+        cut_t = int(np.searchsorted(tt.t_out, 2))
+        tts.append(gcn_spmm.pad_tile_topology_phased(
+            tt, 1, 2, cut_f + 5, tt.n_tiles - cut_f + 3, cut_t + 4,
+            tt.n_tiles - cut_t + 4))
+    assert len({t.n_tiles for t in tts}) == 1
+    return n, {k: np.stack([getattr(t, k) for t in tts])
+               for k in ("rows", "cols", "vals", "t_out", "t_in", "t_perm")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [4, 24, 512])
+def test_cuda_kernels_walk_long_runs_and_skip_zero_tiles(f):
+    """Runs of 320+ slots with zero tiles mid-stream and empty output
+    blocks: the kernels match their plain versions at rtol = atol = 1e-5,
+    the schedule walks exactly the nonzero tiles with no item longer than
+    SCHED_CHUNK, and walking every slot (zero tiles too) gives the same
+    result bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n, streams = _long_run_streams()
+    st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
+    sch = _schedules(streams, n, n)
+    full = _schedules(streams, n, n, walk_all=True)
+    nonzero = int((np.abs(streams["vals"]).max(axis=(-1, -2)) > 0).sum())
+    for key in ("items", "t_items"):
+        it = sch[key].cpu().numpy()
+        live = it[..., 0] >= 0
+        walked = (it[..., 2] - it[..., 1])[live]
+        assert walked.sum() == nonzero and walked.max() <= gcn_spmm.SCHED_CHUNK
+        assert np.array_equal(full[key].cpu().numpy()[..., [0, 3, 4]],
+                              it[..., [0, 3, 4]])   # the same items
+    x = torch.randn(2, n, f, device="cuda")
+    for kern, plain, key in (
+            (gcn_spmm.spmm, lambda: gcn_spmm.spmm_plain(
+                st["rows"], st["cols"], st["vals"], x, n), ""),
+            (gcn_spmm.spmm_t, lambda: gcn_spmm.spmm_t_plain(
+                st["t_out"], st["t_in"], st["t_perm"], st["vals"], x, n),
+             "t_")):
+        streams_of = ((st["rows"], st["cols"], st["vals"]) if not key else
+                      (st["t_out"], st["t_in"], st["t_perm"], st["vals"]))
+        got = kern(sch[key + "work"], sch[key + "items"], *streams_of, x, n)
+        again = kern(full[key + "work"], full[key + "items"], *streams_of, x,
+                     n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, plain(), rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, again)
+        assert torch.all(got[:, 320 * 128:] == 0)    # the empty blocks
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_float64():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     streams = _random_streams(128, 256, 100, parts=1)
     st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
-    rp = torch.from_numpy(gcn_spmm.run_pointers(streams["rows"], 1)).cuda()
-    live = torch.from_numpy(gcn_spmm.live_lengths(streams["vals"])).cuda()
+    sch = _schedules(streams, 128, 256)
     h = torch.randn(1, 256, 8, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
-        gcn_spmm.spmm(rp, live, st["rows"], st["cols"], st["vals"], h, 128)
+        gcn_spmm.spmm(sch["work"], sch["items"], st["rows"], st["cols"],
+                      st["vals"], h, 128)
 
 
 def _card_streams(rows, cols, nnz, parts=3):
-    """Device tile streams, run pointers and live lengths of random shards."""
+    """Device tile streams, run pointers, live lengths and spmm schedules
+    of random shards."""
     streams = _random_streams(rows, cols, nnz, parts)
     st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
     st["row_ptr"] = torch.from_numpy(gcn_spmm.run_pointers(
@@ -90,6 +168,7 @@ def _card_streams(rows, cols, nnz, parts=3):
     st["live"] = torch.from_numpy(gcn_spmm.live_lengths(streams["vals"])).cuda()
     st["t_live"] = torch.from_numpy(gcn_spmm.live_lengths(
         streams["vals"], streams["t_perm"])).cuda()
+    st.update(_schedules(streams, rows, cols))
     return st
 
 
@@ -193,9 +272,9 @@ def test_cuda_phased_kernels_match_plain(f):
     topo, sp = _split_pipeline()
     P, R = topo.num_parts, topo.max_inner
     C = R + topo.halo_size
-    fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+    fwd = (topo.tile_work, topo.tile_items, topo.tile_rows,
            topo.tile_cols, topo.tile_vals)
-    bwd = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+    bwd = (topo.tile_t_work, topo.tile_t_items, topo.tile_t_out,
            topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
     h = torch.randn(P, C, f, device="cuda")
     dz = torch.randn(P, R, f, device="cuda")
@@ -233,7 +312,7 @@ def test_cuda_phased_wrappers_refuse_empty_or_out_of_range_blocks():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     topo, sp = _split_pipeline()
     R = topo.max_inner
-    fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+    fwd = (topo.tile_work, topo.tile_items, topo.tile_rows,
            topo.tile_cols, topo.tile_vals)
     h = torch.randn(topo.num_parts, R + topo.halo_size, 16, device="cuda")
     for bad in (sp._replace(row_tail=0), sp._replace(row_tail=R + 128)):
@@ -242,7 +321,7 @@ def test_cuda_phased_wrappers_refuse_empty_or_out_of_range_blocks():
     nrb = -(-R // 128)
     for blocks in ((2, 2), (3, 1), (-1, 2), (0, nrb + 1)):
         with pytest.raises(RuntimeError, match="cudaError"):
-            gcn_spmm._launch_spmm(fwd[0], fwd[1], fwd[3], fwd[4], h, R,
+            gcn_spmm._launch_spmm(False, fwd[0], fwd[1], fwd[4], h, R,
                                   blocks, "spmm_phased")
     with pytest.raises(ValueError, match="out must be"):
         gcn_spmm.spmm_phased(*fwd, h, R, sp, "boundary",

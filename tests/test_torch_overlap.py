@@ -244,9 +244,9 @@ def test_phased_plain_versions(setups, f):
     rng = np.random.default_rng(f)
     h = torch.from_numpy(rng.standard_normal((P, C, f)))
     dz = torch.from_numpy(rng.standard_normal((P, R, f)))
-    fwd = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+    fwd = (topo.tile_work, topo.tile_items, topo.tile_rows,
            topo.tile_cols, topo.tile_vals)
-    bwd = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+    bwd = (topo.tile_t_work, topo.tile_t_items, topo.tile_t_out,
            topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
     z = gcn_spmm.spmm(*fwd, h, R)
     d = gcn_spmm.spmm_t(*bwd, dz, C)
