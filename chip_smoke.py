@@ -6,7 +6,13 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. build   compile the CUDA kernels from the sources in this checkout
-             (one nvcc per source, started together) and print the time.
+             (one nvcc per source, started together) and print the time;
+             read every spmm and flash-attention kernel instance's
+             registers, spills and tensor-core instructions from the
+             libraries (cuobjdump -res-usage, -sass): it fails on a spmm
+             HMMA that is not TF32, and on a flash instance that spills,
+             a bf16 one without HMMA.16816.F32.BF16 (or with another HMMA)
+             and an f32 one without HMMA or with one that is not TF32.
   1a. attention  the flash-attention kernel behind ops.attention, fed by the
              port's attention layer (projections, qk-norm, RoPE; numpy-
              seeded, x ~ N(0, 1), B = 1) at the full head widths of
@@ -22,11 +28,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
              rows within 3e-2: it rounds the scores to bf16, as in JAX), and
              the layer (kernel output @ wo) against the port's
              self_attention (blockwise at 8192, dense at 4096; f32 relative
-             Frobenius norm <= 1e-5, bf16 rows within 3e-2). Kernel, plain
-             version and scaled_dot_product_attention (the yardstick: in
-             f32 its memory-efficient backend on k and v repeated to H
-             heads, in bf16 the backend it picks; the backend is printed)
-             are timed with CUDA events.
+             Frobenius norm <= 1e-5, bf16 rows within 3e-2), and two more
+             launches bitwise equal to the main path's output. Kernel,
+             plain version and scaled_dot_product_attention (the
+             yardstick: in f32 its memory-efficient backend on k and v
+             repeated to H heads, in bf16 the backend it picks; the
+             backend is printed) are timed with CUDA events. Each row
+             gives bound_ms on the tensor cores the kernel uses (bf16:
+             flops / 989 TFLOP/s; f32: 3·flops / 495 TFLOP/s, 3×TF32),
+             bound_fma_ms (flops / 67 TFLOP/s) beside it, bound_share =
+             bound_ms / ms, and the instance's registers and spill bytes.
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes (reddit-sim and yelp-sim, 4
              partitions; yelp-sim 2 and grid-sim 4 partitions for the
@@ -110,10 +121,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
              (the traces are kept under build/traces/).
-Bounds of the GCN kernels (spmm pair, phased pair, fused pair): bound_ms =
-max(bytes / 3.35 TB/s, 3·flops / 495 TFLOP/s), the least time of
-f32-accurate (3×TF32) work on the tensor cores; bound_fma_ms beside it
-counts the flops at the f32 FMA rate of 67 TFLOP/s.
+Bounds of the GCN kernels (spmm pair, phased pair, fused pair) and of
+flash attention in f32: bound_ms = max(bytes / 3.35 TB/s, 3·flops / 495
+TFLOP/s), the least time of f32-accurate (3×TF32) work on the tensor
+cores; flash attention in bf16: flops / 989 TFLOP/s; bound_fma_ms beside
+it counts the flops at the f32 FMA rate of 67 TFLOP/s.
 Prints the card's name and power limit, one {"kernels": [...]} JSON line,
 and last the {"ok": true, "device": {...}} line.
 """
@@ -157,6 +169,9 @@ def cuda_time_ms(fn, reps: int) -> float:
 # (transpose, FB) -> registers of that spmm kernel instance and its count
 # of TF32 tensor-core instructions (cuobjdump -res-usage and -sass)
 SPMM_BUILD = {}
+# (head dim, dtype) -> registers, spill bytes and tensor-core instructions
+# of that flash-attention kernel instance
+FLASH_BUILD = {}
 
 
 def phase_build():
@@ -167,39 +182,51 @@ def phase_build():
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         results = dict(zip(sources, pool.map(_build.build, sources)))
     log(f"build: {len(sources)} CUDA sources in {time.perf_counter() - t0:.2f} s")
-    inst = re.compile(r"spmm_items_kernelILb([01])ELi(\d+)E")
     for name, (path, report) in results.items():
         log(f"build: {name} -> {os.path.relpath(path, ROOT)}")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
-    # the spmm kernels' registers and tensor-core instructions, read from
-    # the built library (also when it came from the build cache)
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    lib = str(results["gcn_spmm"][0])
-    regs, hmma, key = {}, {}, None
-    for line in subprocess.run([cuobjdump, "-res-usage", lib], check=True,
-                               capture_output=True, text=True).stdout.splitlines():
-        m = inst.search(line)
-        if "Function" in line:
-            key = (m.group(1) == "1", int(m.group(2))) if m else None
-        elif key and "REG:" in line:
-            regs[key] = int(line.split("REG:")[1].split()[0])
-    for line in subprocess.run([cuobjdump, "-sass", lib], check=True,
-                               capture_output=True, text=True).stdout.splitlines():
-        m = inst.search(line)
-        if "Function :" in line:
-            key = (m.group(1) == "1", int(m.group(2))) if m else None
-        elif key and "HMMA" in line:
-            op = "HMMA" + line.split("HMMA")[1].split()[0]
-            hmma.setdefault(key, {}).setdefault(op, 0)
-            hmma[key][op] += 1
-    assert set(regs) == set(hmma) and len(regs) == 10, (regs, hmma)
-    for key, ops in sorted(hmma.items()):
-        assert all("TF32" in op for op in ops), (key, ops)
-        SPMM_BUILD[key] = (regs[key], sum(ops.values()))
+    # registers, spills and tensor-core instructions of every kernel
+    # instance, read from the built libraries (also from the build cache)
+    inst = re.compile(r"spmm_items_kernelILb([01])ELi(\d+)E")
+    res = _build.kernel_resources(results["gcn_spmm"][0])
+    ops = _build.tensor_core_ops(results["gcn_spmm"][0])
+    found = {}
+    for name, r in res.items():
+        m = inst.search(name)
+        if m:
+            found[m.group(1) == "1", int(m.group(2))] = (r, ops.get(name, {}))
+    assert len(found) == 10 and all(o for _, o in found.values()), found
+    for key, (r, o) in sorted(found.items()):
+        assert all("TF32" in op for op in o), (key, o)
+        SPMM_BUILD[key] = (r["registers"], sum(o.values()))
         log(f"build: spmm_items_kernel<transpose={key[0]}, FB={key[1]}>: "
-            f"{regs[key]} registers, SASS tensor-core ops {ops}")
+            f"{r['registers']} registers, SASS tensor-core ops {o}")
+    inst = re.compile(r"flash_attention_kernelILi(\d+)E(13__nv_bfloat16|f)E")
+    res = _build.kernel_resources(results["flash_attention"][0])
+    ops = _build.tensor_core_ops(results["flash_attention"][0])
+    for name, r in res.items():
+        m = inst.search(name)
+        if not m:
+            continue
+        key = (int(m.group(1)), "float32" if m.group(2) == "f" else "bfloat16")
+        o = ops.get(name, {})
+        FLASH_BUILD[key] = dict(registers=r["registers"],
+                                spill_bytes=r["stack"] + r["local"],
+                                tensor_core_ops=o)
+        log(f"build: flash_attention_kernel<D={key[0]}, {key[1]}>: "
+            f"{r['registers']} registers, stack + local (spills) "
+            f"{r['stack'] + r['local']} bytes, SASS tensor-core ops {o}")
+        assert r["stack"] == 0 and r["local"] == 0, (key, r)
+        if key[1] == "bfloat16":
+            assert o.get("HMMA.16816.F32.BF16") and all(
+                op.endswith(".BF16") for op in o), (key, o)
+        else:
+            assert o and all(op.endswith(".TF32") for op in o), (key, o)
+    assert sorted(FLASH_BUILD) == sorted(
+        (d, t) for d in (32, 64, 128, 256) for t in ("float32", "bfloat16")), \
+        sorted(FLASH_BUILD)
 
 
 def gcn_bound(flops: float, nbytes: float) -> dict:
@@ -1492,9 +1519,10 @@ def phase_attention():
     every row within fa.BF16_ROW_REL of its norm), against
     blockwise_attention (f32 2e-5; bf16 rows within BF16_ORACLE_ROW_REL)
     and the layer against the port's self_attention (f32 relative
-    Frobenius norm <= 1e-5; bf16 rows within BF16_ORACLE_ROW_REL); kernel,
-    plain version and SDPA are timed with CUDA events. Returns the rows and
-    the main-path run."""
+    Frobenius norm <= 1e-5; bf16 rows within BF16_ORACLE_ROW_REL), and two
+    more launches must equal the main path's output bitwise; kernel, plain
+    version and SDPA are timed with CUDA events. Returns the rows and the
+    main-path run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -1587,6 +1615,10 @@ def phase_attention():
         row["library_max_abs_err"] = float((lib().float()
                                             - out.float()).abs().max())
         row["library"] = "sdpa: " + _sdpa_backend(lib)
+        again = kern()
+        assert torch.equal(again, kern()) and torch.equal(again, out), what
+        row["bitwise_repeat"] = True
+        del again
         row["ms"] = cuda_time_ms(kern, 5)
         row["plain_ms"] = cuda_time_ms(plain, 2)
         row["library_ms"] = cuda_time_ms(lib, 5)
@@ -1594,12 +1626,19 @@ def phase_attention():
         pairs = unmasked_pairs(s, s, causal, w)
         flops = 4.0 * q.shape[-1] * pairs * q.shape[0] * q.shape[2]
         nbytes = es * (2 * q.numel() + k.numel() + v.numel())
-        peak = PEAK_F32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        # the tensor cores the kernel uses: 3×TF32 (three products) in f32
+        t_ops = (3 * flops / PEAK_TF32_FLOPS if f32
+                 else flops / PEAK_BF16_FLOPS)
+        t_bytes = nbytes / PEAK_BYTES
+        build = FLASH_BUILD[q.shape[-1], dtype]
         row.update(bound_ms=1e3 * max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_fma_ms=1e3 * max(flops / PEAK_F32_FLOPS, t_bytes),
                    gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                   tflops=flops / row["ms"] / 1e9)
+                   tflops=flops / row["ms"] / 1e9,
+                   registers=build["registers"],
+                   spill_bytes=build["spill_bytes"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         log("attention: " + json.dumps(row))
     del layers

@@ -2,8 +2,9 @@
 sliding-window masks — the prefill hot path.
 
 Port of the JAX package's ``repro.kernels.flash_attention``. On a CUDA
-tensor `flash_attention` launches a hand-written CUDA kernel for Hopper
-(``csrc/flash_attention.cu``), which replaces the Pallas kernel
+tensor `flash_attention` launches a hand-written CUDA kernel for Hopper's
+tensor cores (``csrc/flash_attention.cu``: bf16 mma.sync for bf16, 3×TF32
+for f32), which replaces the Pallas kernel
 ``flash_attention``; on a CPU tensor it runs `flash_attention_plain`, the
 plain PyTorch version, which walks the (q_block, kv_block) grid as the
 Pallas kernel's body does. Nothing falls back from one to the other.
@@ -135,9 +136,21 @@ def _check_args(q, k, v):
                          "and v must be contiguous")
 
 
-def _library():
+def _aligned(x):
+    """x itself when each of its rows starts 16-byte aligned (the kernel
+    stages rows in 16-byte chunks), else a contiguous copy of it."""
+    es = x.element_size()
+    if x.data_ptr() % 16 == 0 and all(st * es % 16 == 0
+                                      for st in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _library(defines: tuple[str, ...] = ()):
+    """The kernel's library: the shipped build, or a variant with other
+    compile-time tile sizes (``defines``, launch/bench_attention.py)."""
     from repro_torch.kernels._build import load
-    lib = load("flash_attention")
+    lib = load("flash_attention", defines)
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in _DTYPES.values():
@@ -149,6 +162,24 @@ def _library():
     return lib
 
 
+def launch(lib, q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """One launch of the kernel in ``lib`` on checked CUDA inputs; rows
+    that are not 16-byte aligned are copied first. Counts nothing."""
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    b, s, h, d = q.shape
+    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    code = getattr(lib, _DTYPES[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+        k.shape[1], h, k.shape[2], d, strides, 1.0 / (d ** 0.5), int(causal),
+        int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"flash_attention: CUDA launch failed with "
+                           f"cudaError {code}")
+    return out
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     q_block: int = DEFAULT_Q_BLOCK,
                     kv_block: int = DEFAULT_KV_BLOCK) -> torch.Tensor:
@@ -156,26 +187,15 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
     S % q_block == 0 and T % kv_block == 0 (ValueError otherwise), as the
     JAX package asserts. On CUDA: float32 or bfloat16, d in HEAD_DIMS, the
-    last axis contiguous (other strides are read as they are), one kernel
-    launch; the kernel tiles as it likes (the blocks change only the
-    rounding)."""
-    b, s, h, d = q.shape
-    t = k.shape[1]
-    _check_blocks(s, t, q_block, kv_block)
+    last axis contiguous (other strides are read as they are; an input whose
+    rows are not 16-byte aligned is copied first), one kernel launch; the
+    kernel tiles as it likes (the blocks change only the rounding)."""
+    _check_blocks(q.shape[1], k.shape[1], q_block, kv_block)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_block=q_block, kv_block=kv_block)
     _check_args(q, k, v)
-    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
-    code = getattr(_library(), _DTYPES[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,
-        k.shape[2], d, strides, 1.0 / (d ** 0.5), int(causal), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"flash_attention: CUDA launch failed with "
-                           f"cudaError {code}")
+    out = launch(_library(), q, k, v, causal, window)
     flash_attention.launches += 1
     return out
 

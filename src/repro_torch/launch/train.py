@@ -3,9 +3,11 @@
     python -m repro_torch.launch.train --workload gcn --dataset reddit-sim \\
         --partitions 4 --variant pipegcn --agg blocksparse --epochs 300
 
-Takes the JAX launcher's gcn flags plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch versions of the kernels). Flags of features
-the port does not run yet exit with an error that names the ROADMAP item.
+Takes every flag of the JAX launcher (``repro.launch.train``), with its
+names, types and defaults, plus ``--device`` (default ``cuda``; ``cpu``
+runs the plain PyTorch versions of the kernels). A flag of a feature the
+port does not run yet, given away from its default, exits with an error
+that names its ROADMAP item (`UNPORTED`).
 
 ``--spmd --parts-per-device N`` trains on the torch.distributed backend,
 one process per rank, each holding N partitions (``--partitions`` = ranks
@@ -32,17 +34,35 @@ from repro_torch.data.graph_pipeline import GraphDataPipeline
 from repro_torch.graph.synthetic import model_template
 
 
+# Flags of the JAX launcher whose features the port does not run yet, by
+# the ROADMAP Queue 1 item that ports them. Each is refused when given away
+# from its default.
+UNPORTED = {
+    8: ("boundary codecs and feature slicing",
+        ("wire", "slice_boundary")),
+    9: ("fault tolerance",
+        ("guard_exchange", "max_staleness", "fault_rate", "fault_kind",
+         "fault_seed", "ckpt_dir", "ckpt_every", "ckpt_keep", "resume")),
+    10: ("elastic runtime",
+         ("elastic", "elastic_detect_after", "elastic_warm",
+          "elastic_max_recoveries", "elastic_no_rejoin")),
+    12: ("the transformer LM workload",
+         ("workload", "arch", "reduced", "steps", "batch", "seq")),
+}
+
+
 def unported_flags(args) -> list[str]:
-    """The given flags that select features this port does not run."""
+    """The given flags that select features this port does not run, each
+    with its ROADMAP item."""
+    ap = parser()
     bad = []
-    if args.workload != "gcn":
-        bad.append("--workload lm (the transformer LM workload is not ported)")
-    if args.wire != "f32" or args.slice_boundary:
-        bad.append("--wire / --slice-boundary (ROADMAP Queue 1 item 8)")
-    if (args.guard_exchange or args.fault_rate > 0.0 or args.elastic
-            or args.ckpt_dir or args.ckpt_every or args.resume):
-        bad.append("--guard-exchange / --fault-rate / --elastic / --ckpt-* / "
-                   "--resume (ROADMAP Queue 1 item 9: fault tolerance)")
+    for item, (what, dests) in UNPORTED.items():
+        for dest in dests:
+            value = getattr(args, dest)
+            if value != ap.get_default(dest):
+                flag = "--" + dest.replace("_", "-")
+                shown = flag if isinstance(value, bool) else f"{flag} {value}"
+                bad.append(f"{shown} (ROADMAP Queue 1 item {item}: {what})")
     return bad
 
 
@@ -178,16 +198,31 @@ def parser() -> argparse.ArgumentParser:
                     choices=["auto", "none", "split-phase"],
                     help="split-phase overlap schedule: auto = split where "
                          "feasible for the tile engines")
-    # Flags of the JAX launcher whose features are not ported yet: accepted
-    # so that a JAX command line parses, then refused by unported_flags.
+    # Flags of the JAX launcher whose features are not ported yet (UNPORTED):
+    # accepted with the JAX names, types and defaults so that a JAX command
+    # line parses, then refused by unported_flags.
     ap.add_argument("--wire", default="f32",
                     choices=["f32", "bf16", "int8", "int4", "auto"])
     ap.add_argument("--slice-boundary", action="store_true")
     ap.add_argument("--guard-exchange", action="store_true")
+    ap.add_argument("--max-staleness", type=int, default=8)
     ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--fault-kind", default="drop",
+                    choices=["drop", "corrupt", "delay"])
+    ap.add_argument("--fault-seed", type=int, default=0)
     ap.add_argument("--elastic", action="store_true")
+    ap.add_argument("--elastic-detect-after", type=int, default=2)
+    ap.add_argument("--elastic-warm", type=int, default=1)
+    ap.add_argument("--elastic-max-recoveries", type=int, default=2)
+    ap.add_argument("--elastic-no-rejoin", action="store_true")
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-keep", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     return ap
 

@@ -409,7 +409,8 @@ def test_cuda_flash_attention_matches_plain(d, dtype):
 def test_cuda_flash_attention_reads_strided_inputs():
     """q, k, v as slices of one packed (B, S, H + 2K, d) projection: the
     kernel reads them through their strides, bit-equal to contiguous
-    copies."""
+    copies; so are inputs whose rows are not 16-byte aligned (copied by the
+    wrapper before the launch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels import flash_attention as fa
@@ -419,6 +420,14 @@ def test_cuda_flash_attention_reads_strided_inputs():
     got = fa.flash_attention(q, k, v, window=64, q_block=64, kv_block=64)
     want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               window=64, q_block=64, kv_block=64)
+    assert torch.equal(got, want)
+    flat = torch.randn(packed.numel() + 1, device="cuda")
+    shifted = flat[1:].view(packed.shape)   # rows 4 bytes off alignment
+    assert shifted.data_ptr() % 16
+    q, k, v = shifted[:, :, :8], shifted[:, :, 8:10], shifted[:, :, 10:]
+    got = fa.flash_attention(q, k, v, window=64, q_block=64, kv_block=64)
+    want = fa.flash_attention(q.clone(), k.clone(), v.clone(), window=64,
+                              q_block=64, kv_block=64)
     assert torch.equal(got, want)
 
 
@@ -443,3 +452,48 @@ def test_cuda_flash_attention_refuses_what_the_kernel_does_not_take():
         fa.flash_attention(z, z, z, q_block=64, kv_block=64)
     with pytest.raises(RuntimeError, match="cudaError"):
         fa.flash_attention(x, x, x, window=-1, q_block=64, kv_block=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_long_run_matches_plain(d, dtype):
+    """A long causal run, S = T = 4096 (H = 2, K = 1): every q tile walks
+    up to 4096 keys through the ring, at the bars of
+    test_cuda_flash_attention_matches_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.device import exact_f32_matmul
+    from repro_torch.kernels import flash_attention as fa
+    exact_f32_matmul()
+    rng = np.random.default_rng(1000 + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype)
+        for shape in ((1, 4096, 2, d), (1, 4096, 1, d), (1, 4096, 1, d)))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    rtol = 2e-5 if dtype == torch.float32 else 0
+    torch.testing.assert_close(got, want, rtol=rtol, atol=FLASH_ATOL[dtype])
+    if dtype == torch.bfloat16:
+        fa.assert_rows_close(got, want, fa.BF16_ROW_REL, f"d={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_is_deterministic(dtype):
+    """Two launches on one input give bitwise-equal outputs (no atomics, a
+    fixed summation order), with masks on every path: causal with a
+    window, ragged S and T."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for d in (64, 128, 256):
+        q = torch.randn(1, 1000, 8, d, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(1, 1000, 2, d, device="cuda",
+                            generator=gen).to(dtype) for _ in range(2))
+        a = fa.flash_attention(q, k, v, causal=True, window=300, q_block=8,
+                               kv_block=8)
+        b = fa.flash_attention(q, k, v, causal=True, window=300, q_block=8,
+                               kv_block=8)
+        assert torch.equal(a, b), d

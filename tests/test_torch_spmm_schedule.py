@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.data import GraphDataPipeline
-from repro_torch.kernels import gcn_spmm
+from repro_torch.kernels import gcn_spmm, tf32
 
 T = gcn_spmm.TILE
 C = gcn_spmm.SCHED_CHUNK
@@ -269,28 +269,6 @@ def test_schedule_emulation_matches_plain(case, walk_all):
 # 3×TF32 arithmetic
 # ---------------------------------------------------------------------
 
-def _tf32(x):
-    """float32 -> TF32 (10 mantissa bits), rounded to nearest with ties
-    away from zero: cvt.rna.tf32.f32."""
-    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _toward_zero(x64):
-    """float64 -> float32 rounded toward zero: the worse of the roundings
-    the tensor cores' f32 accumulation may apply."""
-    y = x64.astype(np.float32)
-    over = np.abs(y.astype(np.float64)) > np.abs(x64)
-    return np.where(over, np.nextafter(y, np.float32(0)), y)
-
-
-def _truncate_tf32(x):
-    """The tf32 value the tensor cores read from f32 bits: the low 13
-    mantissa bits dropped."""
-    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def _emulate_tf32(a, b, passes: int, chunk_k: int, stage_k: int = 32):
     """a (M, K) @ b (K, N) as the kernel computes it: the contraction cut
     into items of `chunk_k` (f32 partials summed in order); in an item,
@@ -300,8 +278,7 @@ def _emulate_tf32(a, b, passes: int, chunk_k: int, stage_k: int = 32):
     item's sum in round-to-nearest f32; passes = 3 takes lo·hi, hi·lo and
     hi·hi of the split operands (3×TF32: hi = cvt.rna(x), lo = x − hi read
     truncated), passes = 1 hi·hi only."""
-    ahi, bhi = _tf32(a), _tf32(b)
-    alo, blo = _truncate_tf32(a - ahi), _truncate_tf32(b - bhi)
+    (ahi, alo), (bhi, blo) = tf32.split(a), tf32.split(b)
     terms = ([(alo, bhi), (ahi, blo), (ahi, bhi)] if passes == 3
              else [(ahi, bhi)])
     shape = (a.shape[0], b.shape[1])
@@ -313,7 +290,7 @@ def _emulate_tf32(a, b, passes: int, chunk_k: int, stage_k: int = 32):
             for k in range(s0, min(s0 + stage_k, a.shape[1]), 8):
                 for x, y in terms:
                     step = x[:, k:k + 8].astype(np.float64) @ y[k:k + 8]
-                    part = _toward_zero(part + step)
+                    part = tf32.toward_zero(part + step)
             acc = acc + part
         total = acc if total is None else total + acc
     return total

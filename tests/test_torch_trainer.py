@@ -1,7 +1,10 @@
 """The port's training step + Adam against the JAX package's jitted step,
 the health guard's rollback, and the command line on the CPU."""
+import ast
 import json
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +25,7 @@ from repro_torch.core import (HealthConfig, ModelConfig, PipeConfig,  # noqa: E4
                               PipeGCN, make_train_step, params_from_jax,
                               train_pipegcn)
 from repro_torch.data import GraphDataPipeline  # noqa: E402
-from repro_torch.launch.train import main  # noqa: E402
+from repro_torch.launch.train import UNPORTED, main, parser  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 
 
@@ -124,11 +127,78 @@ def test_cli_trains_fused_on_cpu(capsys):
     assert "eval matmul order (forced, agg=fused)" in printed
 
 
-def test_cli_refuses_unported_flags(capsys):
+def _jax_launcher_flags() -> dict:
+    """Every flag of the JAX launcher (src/repro/launch/train.py) with its
+    default, read from the text of its add_argument("--...") calls, so
+    that JAX is not imported: store_true flags default to False."""
+    text = (Path(__file__).resolve().parents[1] / "src" / "repro" / "launch"
+            / "train.py").read_text()
+    flags = {}
+    for call in text.split("ap.add_argument(")[1:]:
+        head = call.split("help=")[0]
+        flag = re.match(r'"(--[\w-]+)"', head).group(1)
+        default = re.search(r'default=("[^"]*"|[-\w.]+)', head)
+        flags[flag] = (False if 'action="store_true"' in head
+                       else ast.literal_eval(default.group(1)))
+    return flags
+
+
+# (flag, value or None for a store_true flag, ROADMAP Queue 1 item)
+UNPORTED_CASES = [
+    ("--wire", "bf16", 8), ("--slice-boundary", None, 8),
+    ("--guard-exchange", None, 9), ("--max-staleness", "4", 9),
+    ("--fault-rate", "0.1", 9), ("--fault-kind", "corrupt", 9),
+    ("--fault-seed", "3", 9), ("--ckpt-dir", "ckpts", 9),
+    ("--ckpt-every", "2", 9), ("--ckpt-keep", "2", 9), ("--resume", None, 9),
+    ("--elastic", None, 10), ("--elastic-detect-after", "3", 10),
+    ("--elastic-warm", "0", 10), ("--elastic-max-recoveries", "1", 10),
+    ("--elastic-no-rejoin", None, 10),
+    ("--workload", "lm", 12), ("--arch", "starcoder2-3b", 12),
+    ("--reduced", None, 12), ("--steps", "10", 12), ("--batch", "2", 12),
+    ("--seq", "64", 12),
+]
+
+
+def test_cli_parses_every_jax_launcher_flag():
+    """The port's parser defines every flag of the JAX launcher with the
+    same default; the flags it does not run are exactly UNPORTED_CASES."""
+    flags = _jax_launcher_flags()
+    assert len(flags) >= 41, sorted(flags)
+    ap = parser()
+    for flag, default in flags.items():
+        dest = flag[2:].replace("-", "_")
+        assert ap.get_default(dest) == default, (flag, default)
+    unported = {"--" + d.replace("_", "-")
+                for _, dests in UNPORTED.values() for d in dests}
+    assert unported == {f for f, _, _ in UNPORTED_CASES}
+    assert unported <= set(flags)
+
+
+@pytest.mark.parametrize("flag,value,item", UNPORTED_CASES)
+def test_cli_refuses_unported_flags(capsys, flag, value, item):
+    """Each unported flag away from its default exits 2 with "not
+    ported" and its own ROADMAP item."""
     with pytest.raises(SystemExit) as err:
-        main(["--device", "cpu", "--dataset", "tiny", "--wire", "bf16"])
+        main(["--device", "cpu", "--dataset", "tiny", flag]
+             + ([value] if value is not None else []))
     assert err.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    msg = capsys.readouterr().err
+    assert "not ported" in msg and flag in msg
+    assert f"ROADMAP Queue 1 item {item}:" in msg
+    assert msg.count("item ") == 1
+
+
+def test_cli_runs_a_jax_command_line_at_defaults(capsys):
+    """Every JAX launcher flag given at its default parses, triggers no
+    refusal, and trains (2 epochs of tiny on the CPU)."""
+    argv = []
+    for flag, default in _jax_launcher_flags().items():
+        if default is not False and default is not None:
+            argv += [flag, str(default)]
+    out = main(argv + ["--device", "cpu", "--dataset", "tiny", "--epochs",
+                       "2", "--eval-every", "1"])
+    assert len(out["history"]["loss"]) == 2
+    assert all(math.isfinite(v) for v in out["history"]["loss"])
 
 
 def test_default_device_raises_without_cuda():
