@@ -7,12 +7,14 @@
 Phases, in order; any failure ends the run with a non-zero exit:
   1. build   compile the CUDA kernels from the sources in this checkout
              (one nvcc per source, started together) and print the time;
-             read every spmm and flash-attention kernel instance's
+             read every spmm, fused and flash-attention kernel instance's
              registers, spills and tensor-core instructions from the
              libraries (cuobjdump -res-usage, -sass): it fails on a spmm
-             HMMA that is not TF32, and on a flash instance that spills,
-             a bf16 one without HMMA.16816.F32.BF16 (or with another HMMA)
-             and an f32 one without HMMA or with one that is not TF32.
+             HMMA that is not TF32, on a fused instance that spills or has
+             no HMMA or one that is not TF32, and on a flash instance that
+             spills, a bf16 one without HMMA.16816.F32.BF16 (or with
+             another HMMA) and an f32 one without HMMA or with one that is
+             not TF32.
   1a. attention  the flash-attention kernel behind ops.attention, fed by the
              port's attention layer (projections, qk-norm, RoPE; numpy-
              seeded, x ~ N(0, 1), B = 1) at the full head widths of
@@ -62,8 +64,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
                spmm_fused_t at F_in←F_out 256←256, 256←16, 16←256 and
                512←512; gcn_spmm.assert_close_to_scale (rtol=1e-5, atol =
                1e-5·max|plain|: two chained f32 contractions, K up to
-               512); yardstick the composed path: the port's spmm /
-               spmm_t kernel plus torch.matmul, the same function unfused;
+               512), z bit-equal to spmm's on the same h, and two more
+               launches bitwise equal to the first; each call prints its
+               work items, tiles walked (asserted equal to the nonzero
+               tiles), longest item, and its instance's registers, spills
+               and TF32 tensor-core instructions; yardstick the composed
+               path: the port's spmm / spmm_t kernel plus torch.matmul,
+               the same function unfused (the spmm kernel alone at the
+               aggregation width and the composed path's dense product
+               are timed beside it); the bound counts the least work of
+               the function over both orders of the two products (with z,
+               aggregate first only);
              - spmm_phased / spmm_t_phased, both phases, at every width the
                split paths launch them at (yelp-sim P=2 and grid-sim P=4),
                in-phase rows within rtol = atol = 1e-5 of the plain phased
@@ -172,6 +183,9 @@ SPMM_BUILD = {}
 # (head dim, dtype) -> registers, spill bytes and tensor-core instructions
 # of that flash-attention kernel instance
 FLASH_BUILD = {}
+# (transpose, FB, ON) -> registers, spill bytes and TF32 tensor-core
+# instruction count of that fused kernel instance
+FUSED_BUILD = {}
 
 
 def phase_build():
@@ -227,6 +241,27 @@ def phase_build():
     assert sorted(FLASH_BUILD) == sorted(
         (d, t) for d in (32, 64, 128, 256) for t in ("float32", "bfloat16")), \
         sorted(FLASH_BUILD)
+    inst = re.compile(r"fused_items_kernelILb([01])ELi(\d+)ELi(\d+)E")
+    res = _build.kernel_resources(results["gcn_spmm"][0])
+    ops = _build.tensor_core_ops(results["gcn_spmm"][0])
+    for name, r in res.items():
+        m = inst.search(name)
+        if not m:
+            continue
+        key = (m.group(1) == "1", int(m.group(2)), int(m.group(3)))
+        o = ops.get(name, {})
+        FUSED_BUILD[key] = dict(registers=r["registers"],
+                                spill_bytes=r["stack"] + r["local"],
+                                tf32_mma_in_sass=sum(o.values()))
+        log(f"build: fused_items_kernel<transpose={key[0]}, FB={key[1]}, "
+            f"ON={key[2]}>: {r['registers']} registers, stack + local "
+            f"(spills) {r['stack'] + r['local']} bytes, SASS tensor-core "
+            f"ops {o}")
+        assert r["stack"] == 0 and r["local"] == 0, (key, r)
+        assert o and all(op.endswith(".TF32") for op in o), (key, o)
+    want = [(t, fb, on) for t in (False, True) for fb in (8, 16, 32, 64, 128)
+            for on in (16, 64)]
+    assert sorted(FUSED_BUILD) == sorted(want), sorted(FUSED_BUILD)
 
 
 def gcn_bound(flops: float, nbytes: float) -> dict:
@@ -241,12 +276,14 @@ def gcn_bound(flops: float, nbytes: float) -> dict:
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
-def schedule_stats(items, blocks, transpose: bool, f: int, n_nonzero: int):
-    """What one spmm call walks: its work items (those of the output
+def schedule_stats(items, blocks, transpose: bool, f: int, n_nonzero: int,
+                   n_out: int | None = None):
+    """What one spmm call (a fused call with n_out epilogue columns, its
+    aggregation at width f) walks: its work items (those of the output
     blocks `blocks`), the tiles they walk, which must equal the call's
     n_nonzero tiles, and the longest item, at most SCHED_CHUNK; with the
-    kernel instance's registers, shared memory and TF32 tensor-core
-    instruction count."""
+    kernel instance's registers, shared memory (spmm) or spill bytes
+    (fused) and TF32 tensor-core instruction count."""
     from repro_torch.kernels import gcn_spmm
     it = items.cpu().numpy()
     b, e = blocks
@@ -255,10 +292,14 @@ def schedule_stats(items, blocks, transpose: bool, f: int, n_nonzero: int):
     fb = gcn_spmm.feature_block(f)
     out = dict(items=int(sel.sum()), tiles_walked=int(walked.sum()),
                nonzero_tiles=n_nonzero, longest_item=int(walked.max()),
-               chunk=gcn_spmm.SCHED_CHUNK, fb=fb, slices=-(-f // fb),
-               registers=SPMM_BUILD[transpose, fb][0],
-               smem_bytes=gcn_spmm.smem_bytes(fb),
-               tf32_mma_in_sass=SPMM_BUILD[transpose, fb][1])
+               chunk=gcn_spmm.SCHED_CHUNK, fb=fb, slices=-(-f // fb))
+    if n_out is None:
+        out.update(registers=SPMM_BUILD[transpose, fb][0],
+                   smem_bytes=gcn_spmm.smem_bytes(fb),
+                   tf32_mma_in_sass=SPMM_BUILD[transpose, fb][1])
+    else:
+        on = gcn_spmm.epilogue_block(n_out)
+        out.update(on=on, **FUSED_BUILD[transpose, fb, on])
     assert out["tiles_walked"] == n_nonzero, out
     assert out["longest_item"] <= gcn_spmm.SCHED_CHUNK, out
     return out
@@ -452,23 +493,43 @@ def phase_fused_kernels(topos):
         return (topo, fields, topo.tile_rows.shape[0], topo.max_inner,
                 topo.max_inner + topo.halo_size, n_nz)
 
+    def check_and_time(kernel, row, kern, comp, agg, matmul, outs):
+        """Two more launches bitwise equal to the first (outs); kernel and
+        composed timed in turns; the spmm kernel alone at the aggregation
+        width and the composed path's dense product beside them."""
+        again = [kern(), kern()]
+        for out in again:
+            out = out if isinstance(out, tuple) else (out,)
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(out, outs)), kernel
+        row["bitwise_repeat"] = True
+        row["ms"], row["composed_ms"] = _timed_pair(kern, comp)
+        row["agg_ms"] = cuda_time_ms(agg, 20)
+        row["composed_matmul_ms"] = cuda_time_ms(matmul, 20)
+        row["epilogue_share"] = max(0.0, row["ms"] - row["agg_ms"]) / row["ms"]
+
     def record(kernel, row, flops, nbytes):
         row.update(gcn_bound(flops, nbytes))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows[kernel].append(row)
         log(f"kernels: {kernel} {row['graph']} F_in {row['fin']} F_out "
             f"{row['fout']}{' z' if row.get('with_z') else ''}"
             f"{' relu' if row.get('relu') else ''} max_abs_err "
             f"{row['max_abs_err']:.3g} kernel {row['ms']:.4f} ms composed "
-            f"{row['composed_ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 FMA "
-            f"{row['bound_fma_ms']:.4f})")
+            f"{row['composed_ms']:.4f} ms (its matmul "
+            f"{row['composed_matmul_ms']:.4f}) spmm kernel at the "
+            f"aggregation width {row['agg_ms']:.4f} ms (epilogue share "
+            f"{row['epilogue_share']:.3f}) plain "
+            f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, share {row['bound_share']:.3f}; f32 FMA "
+            f"{row['bound_fma_ms']:.4f}); {json.dumps(row['schedule'])}")
 
     for name, fin, fout, with_z, relu in fwd_cases:
         topo, fields, P, R, C, n_nz = shapes(name)
         h = torch.randn(P, C, fin, device="cuda", generator=gen)
         w = torch.randn(fin, fout, device="cuda", generator=gen) / fin ** 0.5
         b = 0.1 * torch.randn(fout, device="cuda", generator=gen)
-        args = (topo.tile_row_ptr, topo.tile_live, topo.tile_rows,
+        args = (topo.tile_work, topo.tile_items, topo.tile_rows,
                 topo.tile_cols, topo.tile_vals, h, w, b, R)
         kern = (lambda a=args, z=with_z, r=relu:
                 gcn_spmm.spmm_fused(*a, relu=r, with_z=z))
@@ -476,45 +537,63 @@ def phase_fused_kernels(topos):
                  gcn_spmm.spmm_fused_plain(*a[2:], relu=r, with_z=z))
         comp = (lambda f=fields, h=h, w=w, b=b, z=with_z, r=relu:
                 composed.aggregate_transform(f, h, w, b, R, relu=r, with_z=z))
+        agg = lambda a=args: gcn_spmm.spmm(*a[:6], R)      # noqa: E731
         (u, z), (pu, pz) = kern(), plain()
         torch.cuda.synchronize()
         err = gcn_spmm.assert_close_to_scale(
             u, pu, f"spmm_fused {name} {fin}->{fout}")
+        zz = agg()
         if with_z:
             err = max(err, gcn_spmm.assert_close_to_scale(
                 z, pz, f"spmm_fused z {name} {fin}->{fout}"))
-        ms, composed_ms = _timed_pair(kern, comp)
-        flops = 2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout
+            assert torch.equal(z, zz), f"spmm_fused z {name}: not spmm's"
+        row = dict(graph=name, fin=fin, fout=fout, with_z=with_z, relu=relu,
+                   max_abs_err=err, z_bit_equal_spmm=with_z,
+                   schedule=schedule_stats(topo.tile_items,
+                                           (0, -(-R // 128)), False, fin,
+                                           n_nz, n_out=fout))
+        check_and_time("spmm_fused", row, kern, comp, agg,
+                       lambda zz=zz, w=w, b=b: zz @ w + b, (u, z))
+        row["plain_ms"] = cuda_time_ms(plain, 5)
+        # the least work of the function: aggregate first (z is produced
+        # there, so with z no other order), or transform first
+        agg_first = 2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout
+        tf_first = 2.0 * P * C * fin * fout + 2.0 * n_nz * 128 * 128 * fout
+        flops = agg_first if with_z else min(agg_first, tf_first)
         nbytes = 4.0 * (n_nz * 128 * 128 + P * C * fin + fin * fout + fout
                         + P * R * fout + (P * R * fin if with_z else 0))
-        record("spmm_fused", dict(
-            graph=name, fin=fin, fout=fout, with_z=with_z, relu=relu,
-            max_abs_err=err, ms=ms, composed_ms=composed_ms,
-            plain_ms=cuda_time_ms(plain, 5)), flops, nbytes)
+        record("spmm_fused", row, flops, nbytes)
     for name, fin, fout in bwd_cases:
         topo, fields, P, R, C, n_nz = shapes(name)
         du = torch.randn(P, R, fout, device="cuda", generator=gen)
         w = torch.randn(fin, fout, device="cuda", generator=gen) / fout ** 0.5
-        args = (topo.tile_col_ptr, topo.tile_t_live, topo.tile_t_out,
+        args = (topo.tile_t_work, topo.tile_t_items, topo.tile_t_out,
                 topo.tile_t_in, topo.tile_t_perm, topo.tile_vals, du, w, C)
         kern = lambda a=args: gcn_spmm.spmm_fused_t(*a)        # noqa: E731
         plain = lambda a=args: gcn_spmm.spmm_fused_t_plain(*a[2:])  # noqa: E731
         comp = (lambda f=fields, du=du, w=w:
                 composed.aggregate_transform_t(f, du, w, C))
+        agg = lambda a=args: gcn_spmm.spmm_t(*a[:7], C)     # noqa: E731
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = gcn_spmm.assert_close_to_scale(
             got, want, f"spmm_fused_t {name} {fin}<-{fout}")
-        ms, composed_ms = _timed_pair(kern, comp)
-        # the dense product du @ wᵀ counted once per row, as the composed
-        # path does it (the kernel's per-slot prologue is its own cost)
-        flops = 2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout
+        row = dict(graph=name, fin=fin, fout=fout, max_abs_err=err,
+                   schedule=schedule_stats(topo.tile_t_items,
+                                           (0, -(-C // 128)), True, fout,
+                                           n_nz, n_out=fin))
+        check_and_time("spmm_fused_t", row, kern, comp, agg,
+                       lambda du=du, w=w: du @ w.T, (got,))
+        row["plain_ms"] = cuda_time_ms(plain, 5)
+        # the least work over both associations: Pᵀ·(du·wᵀ), the dense
+        # product once per input row and the aggregation at F_in, or
+        # (Pᵀ·du)·wᵀ, the aggregation at F_out and the product once per
+        # output row
+        flops = min(2.0 * n_nz * 128 * 128 * fin + 2.0 * P * R * fin * fout,
+                    2.0 * n_nz * 128 * 128 * fout + 2.0 * P * C * fin * fout)
         nbytes = 4.0 * (n_nz * 128 * 128 + P * R * fout + fin * fout
                         + P * C * fin)
-        record("spmm_fused_t", dict(
-            graph=name, fin=fin, fout=fout, max_abs_err=err, ms=ms,
-            composed_ms=composed_ms, plain_ms=cuda_time_ms(plain, 5)),
-            flops, nbytes)
+        record("spmm_fused_t", row, flops, nbytes)
     return rows
 
 
@@ -905,10 +984,10 @@ KERNEL_INFO = {
     "spmm_t": ("src/repro/kernels/gcn_spmm.py:182", "gcn_spmm.cu",
                ("reddit-sim P=4", "blocksparse", "auto"),
                dict(graph="reddit-sim", f=256)),
-    "spmm_fused": ("src/repro/kernels/gcn_spmm.py:370", "gcn_fused.cu",
+    "spmm_fused": ("src/repro/kernels/gcn_spmm.py:370", "gcn_spmm.cu",
                    ("reddit-sim P=4", "fused", "auto"),
                    dict(graph="reddit-sim", fin=128, fout=256)),
-    "spmm_fused_t": ("src/repro/kernels/gcn_spmm.py:458", "gcn_fused.cu",
+    "spmm_fused_t": ("src/repro/kernels/gcn_spmm.py:458", "gcn_spmm.cu",
                      ("reddit-sim P=4", "fused", "aggregate-first"),
                      dict(graph="reddit-sim", fin=256, fout=256)),
     "spmm_phased": ("src/repro/kernels/gcn_spmm.py:245", "gcn_spmm.cu",

@@ -63,8 +63,7 @@ from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
 from repro_torch.graph.reorder import TILE_ENGINES
 from repro_torch.kernels.aggregate import get_engine
 from repro_torch.kernels.gcn_spmm import (SCHED_CHUNK, TILE, SplitSpec,
-                                          live_lengths, run_pointers,
-                                          tile_schedules)
+                                          run_pointers, tile_schedules)
 
 
 class Topology(NamedTuple):
@@ -74,12 +73,10 @@ class Topology(NamedTuple):
     streams, see repro_torch.kernels.gcn_spmm) are attached by
     ``topology_from(pg, with_tiles=True)`` and stay None otherwise. The run
     pointers ``tile_row_ptr`` / ``tile_col_ptr`` index the row-sorted
-    forward stream and the column-sorted transpose stream per output block;
-    ``tile_live`` / ``tile_t_live`` are the streams' live lengths (past
-    them only zero padding tiles remain); the fused kernels walk those.
+    forward stream and the column-sorted transpose stream per output block.
     ``tile_work`` / ``tile_items`` (``tile_t_work`` / ``tile_t_items`` for
     the transpose) are the nonzero-tile work lists and work items of
-    ``gcn_spmm.tile_schedule`` that the spmm kernels walk.
+    ``gcn_spmm.tile_schedule`` that the spmm and fused kernels walk.
     """
 
     edge_row: torch.Tensor    # (P, max_nnz) int32
@@ -96,8 +93,6 @@ class Topology(NamedTuple):
     tile_t_perm: torch.Tensor | None = None   # (P, n_tiles) int32
     tile_row_ptr: torch.Tensor | None = None  # (P, nrb+1) int32
     tile_col_ptr: torch.Tensor | None = None  # (P, ncb+1) int32
-    tile_live: torch.Tensor | None = None     # (P,) int32
-    tile_t_live: torch.Tensor | None = None   # (P,) int32
     tile_work: torch.Tensor | None = None     # (P, W, 2) int32
     tile_items: torch.Tensor | None = None    # (P, I, 5) int32
     tile_t_work: torch.Tensor | None = None   # (P, W', 2) int32
@@ -153,8 +148,8 @@ class ShardedData(NamedTuple):
 def topology_from(pg: PartitionedGraph, with_tiles: bool = False,
                   device="cuda") -> Topology:
     """Lift a PartitionedGraph to tensors on `device`; `with_tiles=True`
-    also extracts the block-sparse tile streams, their run pointers, their
-    live lengths and the spmm kernels' schedules."""
+    also extracts the block-sparse tile streams, their run pointers and
+    the kernels' schedules."""
     dev = resolve_device(device)
 
     def t(a):
@@ -170,8 +165,6 @@ def topology_from(pg: PartitionedGraph, with_tiles: bool = False,
                      tile_t_in=t(pt.t_in), tile_t_perm=t(pt.t_perm),
                      tile_row_ptr=t(run_pointers(pt.rows, nrb)),
                      tile_col_ptr=t(run_pointers(pt.t_out, ncb)),
-                     tile_live=t(live_lengths(pt.vals)),
-                     tile_t_live=t(live_lengths(pt.vals, pt.t_perm)),
                      **{"tile_" + k: t(v) for k, v in tile_schedules(
                          pt, pg.max_inner, pg.combined).items()})
     return Topology(

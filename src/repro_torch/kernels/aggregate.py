@@ -28,8 +28,8 @@ in the fused engine.
   fused       blocksparse storage + the fused aggregate+transform kernels:
               u = (P·comb)@w + b with the bias and an optional ReLU in the
               epilogue and z as an optional second output, and
-              δcomb = Pᵀ·(du@wᵀ) with the dense product as a per-slot
-              prologue; the (rows, F_in) intermediates stay on chip.
+              δcomb = Pᵀ·(du@wᵀ), computed as (Pᵀ·du)@wᵀ with the dense
+              product once per output block; one launch each.
 """
 from __future__ import annotations
 
@@ -166,30 +166,19 @@ class FusedBlockSparseEngine(BlockSparseEngine):
     The primitive spmm/spmm_t (the transform-first ordering) and the
     phased pair are inherited; the `aggregate_transform*` pair runs the
     single-pass fused kernels (``gcn_spmm.spmm_fused`` / ``spmm_fused_t``)
-    on the streams' run pointers and live lengths. The split-phase
-    schedule runs this engine through the composed phased path: the fused
-    epilogue would push the unwritten out-of-phase rows through the dense
-    weight."""
+    on the spmm kernels' schedules and streams. The split-phase schedule
+    runs this engine through the composed phased path: the fused epilogue
+    would push the unwritten out-of-phase rows through the dense weight."""
 
     name = "fused"
-    fused_args = ("tile_row_ptr", "tile_live", "tile_rows", "tile_cols",
-                  "tile_vals")
-    fused_t_args = ("tile_col_ptr", "tile_t_live", "tile_t_out", "tile_t_in",
-                    "tile_t_perm", "tile_vals")
-    fields = tuple(dict.fromkeys(fused_args + fused_t_args
-                                 + BlockSparseEngine.fields))
-    _fwd = staticmethod(_named(fields, BlockSparseEngine.spmm_args))
-    _bwd = staticmethod(_named(fields, BlockSparseEngine.spmm_t_args))
-    _fused = staticmethod(_named(fields, fused_args))
-    _fused_t = staticmethod(_named(fields, fused_t_args))
 
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
                             relu: bool = False, with_z: bool = True):
-        return gcn_spmm.spmm_fused(*self._fused(tslice), comb, w, b,
+        return gcn_spmm.spmm_fused(*self._fwd(tslice), comb, w, b,
                                    num_rows, relu=relu, with_z=with_z)
 
     def aggregate_transform_t(self, tslice, du, w, num_cols: int):
-        return gcn_spmm.spmm_fused_t(*self._fused_t(tslice), du, w, num_cols)
+        return gcn_spmm.spmm_fused_t(*self._bwd(tslice), du, w, num_cols)
 
 
 ENGINES = {e.name: e for e in (CooEngine(), BlockSparseEngine(),

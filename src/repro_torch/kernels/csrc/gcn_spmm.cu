@@ -1,6 +1,7 @@
 // Block-sparse SpMM for the PipeGCN aggregation, forward and transpose,
-// hand-written for Hopper (sm_90a): 3×TF32 on the tensor cores
-// (mma.sync.m16n8k8.tf32), f32 accuracy.
+// and the fused aggregate+transform pair, hand-written for Hopper
+// (sm_90a): 3×TF32 on the tensor cores (mma.sync.m16n8k8.tf32), f32
+// accuracy.
 //
 // Replaces the TPU Pallas kernels of the JAX package:
 //   forward    z = P·h        repro/kernels/gcn_spmm.py:110 spmm_block_sparse
@@ -10,6 +11,12 @@
 //   both, one phase of the split-phase schedule:
 //                             repro/kernels/gcn_spmm.py:245 spmm_block_sparse_phased,
 //                             :267 spmm_block_sparse_t_phased
+//   fused forward    u = (P·h)·w + b [ReLU], z = P·h optional
+//                             repro/kernels/gcn_spmm.py:370 spmm_block_sparse_fused
+//                             (kernel body _kernel_fused, :328)
+//   fused transpose  δcomb = Pᵀ·(du·wᵀ), computed as (Pᵀ·du)·wᵀ
+//                             repro/kernels/gcn_spmm.py:458 spmm_block_sparse_fused_t
+//                             (kernel body _kernel_fused_t, :421)
 //
 // P is stored as dense 128×128 tiles. The Pallas grid walks every slot of
 // the tile streams, padding and zero filler tiles included, one output
@@ -31,7 +38,9 @@
 // costs 2·128²·F flops, ×3 in 3×TF32, against 64 KB of tile values read
 // once: 3·F/2 tensor-core flops per tile byte against a ridge of 495
 // TFLOP/s over 3.35 TB/s = 148. So F ≤ 64 is bound by the tile bytes and
-// F ≥ 128 comes near the 3×TF32 rate (F = 512: 768 flops/byte).
+// F ≥ 128 comes near the 3×TF32 rate (F = 512: 768 flops/byte). The fused
+// pair adds a dense (128, K)·(K, N) product per output block, K and N the
+// layer's widths, also on the tensor cores.
 //
 // Design:
 //   * one thread block (8 warps) per work item and slice of FB columns, FB
@@ -71,9 +80,46 @@
 //     output and sets the counter back to 0. The sum order is fixed, so
 //     results are deterministic run to run. Every in-range output element
 //     of a block in the range is written, so outputs may be torch.empty.
-//   * the C entry point launches on the caller's stream, allocates nothing
-//     (scratch and the zeroed counters come from the wrapper), and returns
-//     cudaGetLastError() so a refused launch is seen.
+//   * the fused pair runs the same aggregation (the same code, so the
+//     forward's z is bit-equal to gcn_spmm_f32's at the same FB), the
+//     transpose on du at F_out: δcomb = Pᵀ·(du·wᵀ) is computed as
+//     (Pᵀ·du)·wᵀ, so the dense product is paid once per output block
+//     instead of once per tile slot as in the Pallas kernel, and the
+//     aggregation runs at F_out. The block that finishes a column slice
+//     of output block r (the run's only item, or its last arrival) writes
+//     it to z (forward, when asked and z's rows take 16-byte copies) or
+//     else to a row-major buffer zbuf (P, nb·128, slices·FB) with zero
+//     columns past F, fences and counts at r's run counter. The dense
+//     product runs in epilogue passes of ON = 16 or 64 output columns (16
+//     where that holds N, else N/64 passes; passes of 128 spilled), one
+//     thread block each, spread over the card: a block takes a ticket,
+//     the first tickets are the aggregation units and the rest the
+//     passes, and a pass waits for its run's counter to reach `slices`,
+//     then multiplies the row block's aggregate (K = F, read with
+//     cp.async.cg through L2 only) by w (forward: w[k][n], K = F_in;
+//     transpose: wᵀ, w read in its stored (F_in, F_out) layout as the
+//     col-major B operand, K = F_out) through the same ring, then adds b
+//     and ReLU when asked. (One elected block per output block doing the
+//     whole product, on an H100, was 1–38% slower than the spmm kernel
+//     plus torch.matmul: PERF.md.) The epilogue multiplies in 4×TF32 (lo
+//     rounded to nearest, lo·lo too, each 8-deep step summed in f32): in
+//     3×TF32 its products stay within 1e-5 of the plain version, but they
+//     err about twice as much as an f32 GEMM's and flipped a ReLU of
+//     yelp-sim's first layer that the f32 path keeps, moving a gradient
+//     leaf of chip_smoke.py's step check 9.4e-4 from the float64
+//     reference on an H100 (bar 5e-4; 4×TF32: 2.3e-4, as the f32 FMA
+//     kernel before it). The epilogue is a function of its own, not
+//     inlined, so its registers do not add to the aggregation's. The
+//     fused instances run one block per SM at every FB (under the
+//     128-register cap of two blocks per SM, with the aggregation's own FB
+//     ≤ 64 instances already at 113–128, they spilled). A block reads the
+//     work item of the ticket it expects (its block index) while its
+//     ticket is on the way, so the ticket costs no extra round trip when
+//     blocks take tickets in dispatch order. An empty run still writes u
+//     = b (ReLU'd) and δcomb = 0.
+//   * the C entry points launch on the caller's stream, allocate nothing
+//     (scratch, zbuf and the zeroed counters come from the wrapper), and
+//     return cudaGetLastError() so a refused launch is seen.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,6 +144,20 @@ template <int FB> struct Layout {
   static constexpr int NT = FB / (8 * WN);
   static constexpr int LDB = FB + 8 > 24 ? FB + 8 : 24;  // sB[k][n]
   static constexpr int STAGE = A_FLOATS + KC * LDB;
+  static constexpr int SMEM = NSTAGE * STAGE * 4;
+};
+
+// A ring stage of a fused epilogue pass of ON columns: zbuf as sA[m][k]
+// and w as sB[k][n] (forward) or wᵀ as sB[n][k] (transpose).
+template <bool TRANSPOSE, int ON> struct Epilogue {
+  static constexpr int STAGE =
+      A_FLOATS + (TRANSPOSE ? ON * LDA_F : KC * Layout<ON>::LDB);
+};
+
+template <bool TRANSPOSE, int FB, int ON> struct Fused {
+  static constexpr int STAGE = Layout<FB>::STAGE > Epilogue<TRANSPOSE, ON>::STAGE
+                                   ? Layout<FB>::STAGE
+                                   : Epilogue<TRANSPOSE, ON>::STAGE;
   static constexpr int SMEM = NSTAGE * STAGE * 4;
 };
 
@@ -129,15 +189,24 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// x rounded to TF32, to nearest with ties away from zero: the value of
+// cvt.rna.tf32.f32 (adding half a TF32 unit to the magnitude's bits and
+// dropping the low 13), in two integer instructions where sm_90 spends
+// four on the cvt.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 // The 3×TF32 split x = hi + lo: hi = tf32(x) rounded to nearest, lo the
 // exact f32 rest (|lo| ≤ 2⁻¹¹|x|). The tensor cores read a tf32 operand's
 // top 19 bits, so lo enters the products as tf32(lo) truncated, an error
-// of at most 2⁻²²|x|, with one instruction fewer per operand than a
-// second cvt.rna on lo.
+// of at most 2⁻²²|x|; RNA_LO rounds lo to nearest as well.
+template <bool RNA_LO = false>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
+  hi = rna_tf32(x);
+  const float rest = x - __uint_as_float(hi);
+  lo = RNA_LO ? rna_tf32(rest) : __float_as_uint(rest);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -149,47 +218,165 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool TRANSPOSE, int FB>
-__global__ void __launch_bounds__(THREADS, FB >= 128 ? 1 : 2)
-spmm_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
-                  const int* __restrict__ items,   // (P, n_items, 5)
-                  const float* __restrict__ vals,  // (P, n_tiles, 128, 128)
-                  const float* __restrict__ x,     // (P, x_rows, F)
-                  float* __restrict__ out,         // (P, out_rows, F)
-                  float* __restrict__ scratch,     // (P, n_items, slices, 128·FB)
-                  int* __restrict__ counters,      // (P, n_out_blocks, slices)
-                  int n_work, int n_items, int n_out_blocks, int blk_begin,
-                  int blk_end, int n_tiles, int x_rows, int out_rows, int F,
-                  int slices) {
-  using L = Layout<FB>;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int s_last;
+template <int N> using Acc = float[Layout<N>::MT][Layout<N>::NT][4];
 
-  const int p = blockIdx.y;
-  const int item = blockIdx.x / slices;
-  const int slice = blockIdx.x - item * slices;
-  const int* it = items + ((long long)p * n_items + item) * 5;
-  const int r = it[0];
-  if (r < blk_begin || r >= blk_end) return;  // another phase, or a pad
-  const int lo = it[1], hi = it[2], chunk = it[3], n_chunks = it[4];
+template <int N>
+__device__ __forceinline__ void zero(Acc<N>& acc) {
+#pragma unroll
+  for (int i = 0; i < Layout<N>::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Layout<N>::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
 
+// acc (a 128 × N block) += the product of `steps` 32-deep stages. Stage q
+// is loaded by load(q, stage) with cp.async into stage (q % NSTAGE) of the
+// ring at `smem` (stride stage_floats): A at the stage's start, as sA[k][m]
+// (A_KM, LDA_T) or sA[m][k] (LDA_F); B at A_FLOATS, as sB[n][k] (B_NK,
+// LDA_F) or sB[k][n] (Layout<N>::LDB). Each stage is multiplied in 3×TF32
+// on a fresh accumulator, which is then added to acc in f32. FOUR (the
+// fused epilogue) multiplies in 4×TF32 instead: lo rounded to nearest,
+// lo·lo taken too, and each 8-deep step on a fresh accumulator of its own
+// added in f32, so the tensor cores round one sum of eight where they
+// rounded a chain of twelve. The ring is free again when this returns
+// only after a __syncthreads().
+template <int N, bool A_KM, bool B_NK, bool FOUR = false, class Load>
+__device__ __forceinline__ void ring_mma(Acc<N>& acc, float* smem,
+                                         int stage_floats, int steps,
+                                         Load load) {
+  using L = Layout<N>;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp % L::WM, wn = warp / L::WM;
-  const int f0 = slice * FB;
-  const int2* wp = reinterpret_cast<const int2*>(work) + (long long)p * n_work;
-  const float* xp = x + (long long)p * x_rows * F;
-  // 16-byte copies of x where its rows keep that alignment
-  const bool vec = (F & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+#pragma unroll
+  for (int q = 0; q < NSTAGE - 1; ++q) {
+    if (q < steps) load(q, smem + q * stage_floats);
+    cp_commit();
+  }
+  for (int q = 0; q < steps; ++q) {
+    cp_wait<NSTAGE - 2>();  // stage q has landed
+    __syncthreads();        // ... for every thread; stage q-1 is consumed
+    if (q + NSTAGE - 1 < steps)
+      load(q + NSTAGE - 1, smem + ((q + NSTAGE - 1) % NSTAGE) * stage_floats);
+    cp_commit();
+    const float* sa = smem + (q % NSTAGE) * stage_floats;
+    const float* sb = sa + A_FLOATS;
+    Acc<N> stage_acc;  // this stage's 32-deep partial
+    zero<N>(stage_acc);
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      uint32_t ahi[L::MT][4], alo[L::MT][4];
+#pragma unroll
+      for (int i = 0; i < L::MT; ++i) {
+        const int m = (wm * L::MT + i) * 16 + g;
+        float a[4];
+        if (A_KM) {
+          a[0] = sa[(kk + t4) * LDA_T + m];
+          a[1] = sa[(kk + t4) * LDA_T + m + 8];
+          a[2] = sa[(kk + t4 + 4) * LDA_T + m];
+          a[3] = sa[(kk + t4 + 4) * LDA_T + m + 8];
+        } else {
+          a[0] = sa[m * LDA_F + kk + t4];
+          a[1] = sa[(m + 8) * LDA_F + kk + t4];
+          a[2] = sa[m * LDA_F + kk + t4 + 4];
+          a[3] = sa[(m + 8) * LDA_F + kk + t4 + 4];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32<FOUR>(a[e], ahi[i][e], alo[i][e]);
+      }
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j) {
+        const int n = (wn * L::NT + j) * 8 + g;
+        uint32_t bhi0, blo0, bhi1, blo1;
+        if (B_NK) {
+          split_tf32<FOUR>(sb[n * LDA_F + kk + t4], bhi0, blo0);
+          split_tf32<FOUR>(sb[n * LDA_F + kk + t4 + 4], bhi1, blo1);
+        } else {
+          split_tf32<FOUR>(sb[(kk + t4) * L::LDB + n], bhi0, blo0);
+          split_tf32<FOUR>(sb[(kk + t4 + 4) * L::LDB + n], bhi1, blo1);
+        }
+#pragma unroll
+        for (int i = 0; i < L::MT; ++i) {
+          float (&d)[4] = stage_acc[i][j];
+          if (FOUR) {
+            d[0] = d[1] = d[2] = d[3] = 0.f;
+            mma_tf32(d, alo[i], blo0, blo1);
+          }
+          mma_tf32(d, alo[i], bhi0, bhi1);
+          mma_tf32(d, ahi[i], blo0, blo1);
+          mma_tf32(d, ahi[i], bhi0, bhi1);
+          if (FOUR) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+          }
+        }
+      }
+    }
+    // the running sum in round-to-nearest f32 adds on the CUDA cores
+    if (!FOUR) {
+#pragma unroll
+      for (int i = 0; i < L::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += stage_acc[i][j][e];
+    }
+  }
+  cp_wait<0>();
+}
 
-  float acc[L::MT][L::NT][4];
+// Thread (g, t4) of a warp holds, per fragment, rows g and g + 8 and
+// columns 2·t4, 2·t4 + 1: element e of fragment (i, j) is row
+// (wm·MT + i)·16 + g + 8·(e >> 1), column (wn·NT + j)·8 + 2·t4 + (e & 1)
+// of the block. f(i, j, e, row, column) visits them.
+template <int N, class F>
+__device__ __forceinline__ void for_each(F f) {
+  using L = Layout<N>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp % L::WM, wn = warp / L::WM;
 #pragma unroll
   for (int i = 0; i < L::MT; ++i)
 #pragma unroll
     for (int j = 0; j < L::NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e)
+        f(i, j, e, (wm * L::MT + i) * 16 + g + (e >> 1) * 8,
+          (wn * L::NT + j) * 8 + 2 * t4 + (e & 1));
+}
+
+// out[row0 + m][c0 + n] = acc for rows < rows and columns < cols (row
+// length ld).
+template <int FB>
+__device__ __forceinline__ void store_block(const Acc<FB>& acc, float* out,
+                                            int row0, int rows, int c0,
+                                            int cols, int ld) {
+  for_each<FB>([&](int i, int j, int e, int m, int n) {
+    const int row = row0 + m, c = c0 + n;
+    if (row < rows && c < cols) out[(long long)row * ld + c] = acc[i][j][e];
+  });
+}
+
+// The (128, FB) sum of one output block's tiles in one column slice
+// (columns f0 ..): this block's work item [lo, hi) of the work list wp,
+// chunk `chunk` of n_chunks. Returns true in the block that finishes the
+// sum, with the sum in acc: the run's only item, or the last of its items
+// to arrive at the run's counter `ctr`, which adds every item's partial
+// (this one's `part`, the others `part_stride` float4s apart, in chunk
+// order) and resets the counter; false in the others.
+template <bool TRANSPOSE, int FB>
+__device__ __forceinline__ bool aggregate(
+    Acc<FB>& acc, float* smem, const int2* wp, const float* tiles,
+    const float* xp, bool vec, int lo, int hi, int chunk, int n_chunks,
+    int x_rows, int F, int f0, float4* part, long long part_stride,
+    int* ctr) {
+  using L = Layout<FB>;
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  zero<FB>(acc);
 
   // The (tile, input block) pair of the tile being loaded, and the next
   // one's, fetched a tile ahead.
@@ -197,15 +384,14 @@ spmm_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
   int2 cur = lo < hi ? wp[lo] : make_int2(0, 0);
   int2 nxt = lo + 1 < hi ? wp[lo + 1] : make_int2(0, 0);
 
-  auto load_stage = [&](int q) {
+  auto load_stage = [&](int q, float* sa) {
     const int j = q / CHUNKS, k0 = (q % CHUNKS) * KC;
     if (q % CHUNKS == 0 && q > 0) {
       cur = nxt;
       nxt = lo + j + 1 < hi ? wp[lo + j + 1] : make_int2(0, 0);
     }
-    float* sa = smem + (q % NSTAGE) * L::STAGE;
     float* sb = sa + A_FLOATS;
-    const float* tv = vals + ((long long)p * n_tiles + cur.x) * (TILE * TILE);
+    const float* tv = tiles + (long long)cur.x * (TILE * TILE);
 #pragma unroll
     for (int i = 0; i < (TILE * KC / 4) / THREADS; ++i) {
       const int idx = i * THREADS + tid;
@@ -237,98 +423,11 @@ spmm_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
       }
     }
   };
-
-#pragma unroll
-  for (int q = 0; q < NSTAGE - 1; ++q) {
-    if (q < steps) load_stage(q);
-    cp_commit();
-  }
-  for (int q = 0; q < steps; ++q) {
-    cp_wait<NSTAGE - 2>();  // stage q has landed
-    __syncthreads();        // ... for every thread; stage q-1 is consumed
-    if (q + NSTAGE - 1 < steps) load_stage(q + NSTAGE - 1);
-    cp_commit();
-    const float* sa = smem + (q % NSTAGE) * L::STAGE;
-    const float* sb = sa + A_FLOATS;
-    float stage_acc[L::MT][L::NT][4];  // this stage's 32-deep partial
-#pragma unroll
-    for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) stage_acc[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 8) {
-      uint32_t ahi[L::MT][4], alo[L::MT][4];
-#pragma unroll
-      for (int i = 0; i < L::MT; ++i) {
-        const int m = (wm * L::MT + i) * 16 + g;
-        float a[4];
-        if (TRANSPOSE) {
-          a[0] = sa[(kk + t4) * LDA_T + m];
-          a[1] = sa[(kk + t4) * LDA_T + m + 8];
-          a[2] = sa[(kk + t4 + 4) * LDA_T + m];
-          a[3] = sa[(kk + t4 + 4) * LDA_T + m + 8];
-        } else {
-          a[0] = sa[m * LDA_F + kk + t4];
-          a[1] = sa[(m + 8) * LDA_F + kk + t4];
-          a[2] = sa[m * LDA_F + kk + t4 + 4];
-          a[3] = sa[(m + 8) * LDA_F + kk + t4 + 4];
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(a[e], ahi[i][e], alo[i][e]);
-      }
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j) {
-        const int n = (wn * L::NT + j) * 8 + g;
-        uint32_t bhi0, blo0, bhi1, blo1;
-        split_tf32(sb[(kk + t4) * L::LDB + n], bhi0, blo0);
-        split_tf32(sb[(kk + t4 + 4) * L::LDB + n], bhi1, blo1);
-#pragma unroll
-        for (int i = 0; i < L::MT; ++i) {
-          mma_tf32(stage_acc[i][j], alo[i], bhi0, bhi1);
-          mma_tf32(stage_acc[i][j], ahi[i], blo0, blo1);
-          mma_tf32(stage_acc[i][j], ahi[i], bhi0, bhi1);
-        }
-      }
-    }
-    // the running sum in round-to-nearest f32 adds on the CUDA cores
-#pragma unroll
-    for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += stage_acc[i][j][e];
-  }
-  cp_wait<0>();
-
-  // Thread (g, t4) of a warp holds, per fragment, rows g and g + 8 and
-  // columns 2·t4, 2·t4 + 1.
-  auto store = [&](int i, int j, const float (&v)[4]) {
-    const int m = (wm * L::MT + i) * 16 + g;
-    const int col = f0 + (wn * L::NT + j) * 8 + 2 * t4;
-    float* op = out + (long long)p * out_rows * F;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r * TILE + m + (e >> 1) * 8;
-      const int c = col + (e & 1);
-      if (row < out_rows && c < F) op[(long long)row * F + c] = v[e];
-    }
-  };
-
-  if (n_chunks == 1) {
-#pragma unroll
-    for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j) store(i, j, acc[i][j]);
-    return;
-  }
+  ring_mma<FB, TRANSPOSE, false>(acc, smem, L::STAGE, steps, load_stage);
+  if (n_chunks == 1) return true;
 
   // A run cut in several items: publish this item's partial, and let the
   // last block of the run to arrive add all partials in chunk order.
-  float4* part = reinterpret_cast<float4*>(
-      scratch + (((long long)p * n_items + item) * slices + slice) *
-                    (TILE * FB));
 #pragma unroll
   for (int i = 0; i < L::MT; ++i)
 #pragma unroll
@@ -338,15 +437,13 @@ spmm_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* ctr = counters + ((long long)p * n_out_blocks + r) * slices + slice;
     s_last = atomicAdd(ctr, 1) == n_chunks - 1;
     if (s_last) atomicExch(ctr, 0);  // ready for the next launch
   }
   __syncthreads();
-  if (!s_last) return;
+  if (!s_last) return false;
   __threadfence();
-  const long long stride = (long long)slices * (TILE * FB) / 4;  // per item
-  const float4* first = part - (long long)chunk * stride;
+  const float4* first = part - (long long)chunk * part_stride;
 #pragma unroll
   for (int i = 0; i < L::MT; ++i)
 #pragma unroll
@@ -359,14 +456,286 @@ spmm_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
 #pragma unroll
           for (int k = 0; k < 4; ++k) v[k] = acc[i][j][k];
         } else {
-          const float4 w = __ldcg(first + c * stride + e);
+          const float4 w = __ldcg(first + c * part_stride + e);
           v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) s[k] = c == 0 ? v[k] : s[k] + v[k];
       }
-      store(i, j, s);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = s[k];
     }
+  return true;
+}
+
+template <bool TRANSPOSE, int FB>
+__global__ void __launch_bounds__(THREADS, FB >= 128 ? 1 : 2)
+spmm_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
+                  const int* __restrict__ items,   // (P, n_items, 5)
+                  const float* __restrict__ vals,  // (P, n_tiles, 128, 128)
+                  const float* __restrict__ x,     // (P, x_rows, F)
+                  float* __restrict__ out,         // (P, out_rows, F)
+                  float* __restrict__ scratch,     // (P, n_items, slices, 128·FB)
+                  int* __restrict__ counters,      // (P, n_out_blocks, slices)
+                  int n_work, int n_items, int n_out_blocks, int blk_begin,
+                  int blk_end, int n_tiles, int x_rows, int out_rows, int F,
+                  int slices) {
+  extern __shared__ __align__(16) float smem[];
+  const int p = blockIdx.y;
+  const int item = blockIdx.x / slices;
+  const int slice = blockIdx.x - item * slices;
+  const int* it = items + ((long long)p * n_items + item) * 5;
+  const int r = it[0];
+  if (r < blk_begin || r >= blk_end) return;  // another phase, or a pad
+  const int f0 = slice * FB;
+  // 16-byte copies of x where its rows keep that alignment
+  const bool vec = (F & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  Acc<FB> acc;
+  if (!aggregate<TRANSPOSE, FB>(
+          acc, smem, reinterpret_cast<const int2*>(work) + (long long)p * n_work,
+          vals + (long long)p * n_tiles * (TILE * TILE),
+          x + (long long)p * x_rows * F, vec, it[1], it[2], it[3], it[4],
+          x_rows, F, f0,
+          reinterpret_cast<float4*>(
+              scratch + (((long long)p * n_items + item) * slices + slice) *
+                            (TILE * FB)),
+          (long long)slices * (TILE * FB) / 4,
+          counters + ((long long)p * n_out_blocks + r) * slices + slice))
+    return;
+  store_block<FB>(acc, out + (long long)p * out_rows * F, r * TILE, out_rows,
+                  f0, F, F);
+}
+
+// One pass of the fused epilogue of one output block: out[row0 + m][g0 +
+// n] = (zb · B)[m][g0 + n] (+ bias, ReLU'd when relu) for rows < out_rows
+// and the ON columns from g0 (those < n_out). zb holds the block's
+// aggregate: `rows` rows of row length ks (a multiple of 4, zero past K;
+// rows past `rows` read as 0); B is w (K, n_out) forward, wᵀ with w (n_out,
+// K) for the transpose, row length ldw. Not
+// inlined: its registers are allocated apart from the aggregation's, and
+// nothing of it is hoisted above the aggregation (inlined, the forward FB
+// = 128 instances spilled at ON ≥ 32).
+template <bool TRANSPOSE, int ON>
+__device__ __noinline__ void epilogue(const float* zb, int ks, int rows,
+                                      int K, const float* w, int ldw,
+                                      const float* bias, int relu, float* out,
+                                      int row0, int out_rows, int g0,
+                                      int n_out) {
+  using L = Layout<ON>;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int STAGE = Epilogue<TRANSPOSE, ON>::STAGE;
+  const int tid = threadIdx.x;
+  const bool wvec = (ldw & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  auto load_stage = [&](int q, float* sa) {
+    const int k0 = q * KC;
+    float* sb = sa + A_FLOATS;
+#pragma unroll
+    for (int i = 0; i < (TILE * KC / 4) / THREADS; ++i) {  // sA[m][k]
+      const int idx = i * THREADS + tid;
+      const int m = idx / (KC / 4), c = idx % (KC / 4);
+      const int k = k0 + c * 4;
+      const bool ok = k < ks && m < rows;
+      cp16(sa + m * LDA_F + c * 4, ok ? zb + (long long)m * ks + k : zb,
+           ok ? 16 : 0);
+    }
+    if (TRANSPOSE) {  // sB[n][k] = w[g0 + n][k0 + k]
+      if (wvec) {
+        for (int idx = tid; idx < ON * KC / 4; idx += THREADS) {
+          const int n = idx / (KC / 4), c = idx % (KC / 4);
+          const int row = g0 + n, col = k0 + c * 4;
+          const bool ok = row < n_out && col < K;
+          cp16(sb + n * LDA_F + c * 4, ok ? w + (long long)row * ldw + col : w,
+               ok ? 16 : 0);
+        }
+      } else {
+        for (int idx = tid; idx < ON * KC; idx += THREADS) {
+          const int n = idx / KC, c = idx % KC;
+          const int row = g0 + n, col = k0 + c;
+          const bool ok = row < n_out && col < K;
+          cp4(sb + n * LDA_F + c, ok ? w + (long long)row * ldw + col : w,
+              ok ? 4 : 0);
+        }
+      }
+    } else {          // sB[k][n] = w[k0 + k][g0 + n]
+      if (wvec) {
+        for (int idx = tid; idx < KC * ON / 4; idx += THREADS) {
+          const int k = idx / (ON / 4), c = idx % (ON / 4);
+          const int row = k0 + k, col = g0 + c * 4;
+          const bool ok = row < K && col < n_out;
+          cp16(sb + k * L::LDB + c * 4, ok ? w + (long long)row * ldw + col : w,
+               ok ? 16 : 0);
+        }
+      } else {
+        for (int idx = tid; idx < KC * ON; idx += THREADS) {
+          const int k = idx / ON, c = idx % ON;
+          const int row = k0 + k, col = g0 + c;
+          const bool ok = row < K && col < n_out;
+          cp4(sb + k * L::LDB + c, ok ? w + (long long)row * ldw + col : w,
+              ok ? 4 : 0);
+        }
+      }
+    }
+  };
+  Acc<ON> acc;
+  zero<ON>(acc);
+  ring_mma<ON, false, TRANSPOSE, true>(acc, smem, STAGE, (ks + KC - 1) / KC,
+                                       load_stage);
+  for_each<ON>([&](int i, int j, int e, int m, int n) {
+    const int row = row0 + m, c = g0 + n;
+    if (row < out_rows && c < n_out) {
+      float v = acc[i][j][e];
+      if (bias) v += bias[c];
+      if (relu) v = fmaxf(v, 0.f);
+      out[(long long)row * n_out + c] = v;
+    }
+  });
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The fused pair. Each thread block takes a ticket and runs the unit it
+// names: the first n_agg tickets an aggregation unit of spmm_items_kernel
+// at width F (F_in forward, F_out transpose), one (partition, item, column
+// slice) in the spmm kernels' launch order, the others an epilogue pass,
+// one (partition, output block r, pass o). The block that finishes a
+// column slice of output block r parks it in z (forward, where z's rows
+// take 16-byte copies) or else in zbuf, and counts at r's run counter; a
+// pass waits until r's run counter holds all `slices` slices, then
+// computes ON output columns, and the last pass of r to finish resets r's
+// counters. (Handing a partition's passes out after the next partition's
+// aggregation, to run them beside it, measured slower on an H100.)
+// A block waits only on units of earlier tickets, all taken by blocks
+// already running, which never wait on later ones: no deadlock, whatever
+// the grid's size or order of dispatch.
+// Counters: (P, nb, slices) item arrivals, then (P, nb) run counters,
+// (P, nb) finished passes, and the ticket.
+template <bool TRANSPOSE, int FB, int ON>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_items_kernel(const int* __restrict__ work,    // (P, n_work, 2)
+                   const int* __restrict__ items,   // (P, n_items, 5)
+                   const float* __restrict__ vals,  // (P, n_tiles, 128, 128)
+                   const float* __restrict__ x,     // (P, x_rows, F)
+                   const float* __restrict__ w,     // fwd (F, n_out); transpose (n_out, F)
+                   const float* __restrict__ bias,  // (n_out,) or null
+                   float* __restrict__ out,         // (P, out_rows, n_out)
+                   float* __restrict__ z,           // (P, out_rows, F) or null
+                   float* __restrict__ zbuf,        // (P, nb·128, slices·FB)
+                   float* __restrict__ scratch,     // (P, n_items, slices, 128·FB)
+                   int* __restrict__ counters,      // see above
+                   int P, int n_work, int n_items, int nb, int n_tiles,
+                   int x_rows, int out_rows, int F, int slices, int n_out,
+                   int relu) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_ticket, s_item[5];
+  const int passes = (n_out + ON - 1) / ON;
+  const int n_agg = P * n_items * slices;
+  const int n_units = n_agg + P * nb * passes;
+  int* run_ctr = counters + (long long)P * nb * slices;
+  int* pass_ctr = run_ctr + (long long)P * nb;
+  int* ticket = pass_ctr + (long long)P * nb;
+  // The item of an aggregation unit u < n_agg, (p, item, slice) in the spmm
+  // kernels' order.
+  auto item_of = [&](int u) {
+    return items + ((long long)(u / (n_items * slices)) * n_items +
+                    (u % (n_items * slices)) / slices) * 5;
+  };
+  if (threadIdx.x == 0) {
+    // Blocks mostly take tickets in the order they are dispatched: read the
+    // item of ticket blockIdx.x while the ticket is on its way.
+    const int guess = blockIdx.x;
+    int f[5] = {0, 0, 0, 0, 0};
+    if (guess < n_agg)
+      for (int i = 0; i < 5; ++i) f[i] = item_of(guess)[i];
+    const int u = atomicAdd(ticket, 1);
+    if (u == n_units - 1) atomicExch(ticket, 0);  // ready for the next launch
+    if (u != guess && u < n_agg)
+      for (int i = 0; i < 5; ++i) f[i] = item_of(u)[i];
+    s_ticket = u;
+    for (int i = 0; i < 5; ++i) s_item[i] = f[i];
+  }
+  __syncthreads();
+  int p, t = s_ticket;
+  const bool pass = t >= n_agg;
+  if (pass) {  // pass (r, o) of partition p
+    t -= n_agg;
+    p = t / (nb * passes);
+    t -= p * nb * passes;
+  } else {     // aggregation unit (item, slice) of partition p
+    p = t / (n_items * slices);
+    t -= p * n_items * slices;
+  }
+  const int ks = slices * FB;
+  // the epilogue reads the aggregate from z where it can, else from zbuf
+  const bool from_z =
+      z && (F & 3) == 0 && (reinterpret_cast<uintptr_t>(z) & 15) == 0;
+
+  if (pass) {  // epilogue pass t of partition p: (r, o)
+    const int r = t / passes, o = t % passes;
+    const long long pr = (long long)p * nb + r;
+    if (threadIdx.x == 0)
+      while (load_acquire(run_ctr + pr) < slices) __nanosleep(256);
+    __syncthreads();
+    __threadfence();
+    epilogue<TRANSPOSE, ON>(
+        from_z ? z + ((long long)p * out_rows + r * TILE) * F
+               : zbuf + pr * TILE * ks,
+        from_z ? F : ks, from_z ? min(TILE, out_rows - r * TILE) : TILE, F, w,
+        TRANSPOSE ? F : n_out, bias, relu,
+        out + (long long)p * out_rows * n_out, r * TILE, out_rows, o * ON,
+        n_out);
+    if (threadIdx.x == 0 && atomicAdd(pass_ctr + pr, 1) == passes - 1) {
+      pass_ctr[pr] = 0;  // every pass has seen the run complete
+      run_ctr[pr] = 0;
+    }
+    return;
+  }
+
+  // aggregation unit t of partition p: (item, slice)
+  const int item = t / slices, slice = t % slices;
+  const int* it = s_item;
+  const int r = it[0];
+  if (r < 0) return;  // a pad
+  const int f0 = slice * FB;
+  const bool vec = (F & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  Acc<FB> acc;
+  if (!aggregate<TRANSPOSE, FB>(
+          acc, smem, reinterpret_cast<const int2*>(work) + (long long)p * n_work,
+          vals + (long long)p * n_tiles * (TILE * TILE),
+          x + (long long)p * x_rows * F, vec, it[1], it[2], it[3], it[4],
+          x_rows, F, f0,
+          reinterpret_cast<float4*>(
+              scratch + (((long long)p * n_items + item) * slices + slice) *
+                            (TILE * FB)),
+          (long long)slices * (TILE * FB) / 4,
+          counters + ((long long)p * nb + r) * slices + slice))
+    return;
+  // This block finished slice `slice` of output block r: park it for the
+  // epilogue passes.
+  if (z)
+    store_block<FB>(acc, z + (long long)p * out_rows * F, r * TILE, out_rows,
+                    f0, F, F);
+  if (!from_z)
+    store_block<FB>(acc, zbuf + ((long long)p * nb + r) * TILE * ks, 0, TILE,
+                    f0, ks, ks);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(run_ctr + (long long)p * nb + r, 1);
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = e == cudaSuccess;
+  return static_cast<int>(e);
 }
 
 template <bool TRANSPOSE, int FB>
@@ -378,12 +747,7 @@ int launch_fb(const int* work, const int* items, const float* vals,
   using L = Layout<FB>;
   auto kernel = spmm_items_kernel<TRANSPOSE, FB>;
   static bool attr_set = false;  // once per instance and process
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
+  if (const int e = set_smem(kernel, L::SMEM, attr_set)) return e;
   const int slices = (F + FB - 1) / FB;
   const dim3 grid(n_items * slices, P);
   kernel<<<grid, THREADS, L::SMEM, st>>>(
@@ -424,6 +788,63 @@ int launch(const void* work, const void* items, const void* vals,
 #undef SPMM_LAUNCH
 }
 
+// The arguments of a fused launch, as the C entry points take them.
+struct FusedArgs {
+  const int* work;
+  const int* items;
+  const float* vals;
+  const float* x;
+  const float* w;
+  const float* bias;
+  float* out;
+  float* z;
+  float* zbuf;
+  float* scratch;
+  int* counters;
+  int P, n_work, n_items, nb, n_tiles, x_rows, out_rows, F, n_out, relu;
+  cudaStream_t stream;
+};
+
+template <bool TRANSPOSE, int FB, int ON>
+int launch_fused_fb(const FusedArgs& a) {
+  auto kernel = fused_items_kernel<TRANSPOSE, FB, ON>;
+  constexpr int smem = Fused<TRANSPOSE, FB, ON>::SMEM;
+  static bool attr_set = false;  // once per instance and process
+  if (const int e = set_smem(kernel, smem, attr_set)) return e;
+  const int slices = (a.F + FB - 1) / FB;
+  const int passes = (a.n_out + ON - 1) / ON;
+  const long long units =
+      (long long)a.P * (a.n_items * slices + a.nb * passes);
+  if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(units);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      a.work, a.items, a.vals, a.x, a.w, a.bias, a.out, a.z, a.zbuf,
+      a.scratch, a.counters, a.P, a.n_work, a.n_items, a.nb, a.n_tiles,
+      a.x_rows, a.out_rows, a.F, slices, a.n_out, a.relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The (FB, ON) pairs built: every FB with ON = 16 or 64.
+template <bool TRANSPOSE>
+int launch_fused(const FusedArgs& a, int FB, int ON) {
+  if (a.P <= 0 || a.F <= 0 || a.n_out <= 0 || a.n_items <= 0)
+    return cudaSuccess;
+#define FUSED_LAUNCH(fb, on) \
+  if (FB == fb && ON == on) return launch_fused_fb<TRANSPOSE, fb, on>(a)
+  FUSED_LAUNCH(8, 16);
+  FUSED_LAUNCH(8, 64);
+  FUSED_LAUNCH(16, 16);
+  FUSED_LAUNCH(16, 64);
+  FUSED_LAUNCH(32, 16);
+  FUSED_LAUNCH(32, 64);
+  FUSED_LAUNCH(64, 16);
+  FUSED_LAUNCH(64, 64);
+  FUSED_LAUNCH(128, 16);
+  FUSED_LAUNCH(128, 64);
+#undef FUSED_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -457,6 +878,62 @@ int gcn_spmm_t_f32(const void* t_work, const void* t_items, const void* vals,
   return launch<true>(t_work, t_items, vals, dz, dcomb, scratch, counters, P,
                       n_work, n_items, ncb, blk_begin, blk_end, n_tiles,
                       dz_rows, num_cols, F, FB, stream);
+}
+
+// u[p] = (P_p · h[p]) · w + b (ReLU'd when relu != 0), and z[p] = P_p · h[p]
+// when z is not null, bit-equal to gcn_spmm_f32's z at the same FB. The
+// forward schedule, vals, h and FB as for gcn_spmm_f32 (F = Fin); w (Fin,
+// Fout), b (Fout,), u (P, num_rows, Fout), z (P, num_rows, Fin); zbuf ≥
+// P·nrb·128·ceil(Fin/FB)·FB floats; scratch as for gcn_spmm_f32; counters
+// ≥ P·nrb·(ceil(Fin/FB) + 2) + 1 int32, zero; ON = 16 or 64 output columns
+// per epilogue pass. Another (FB, ON) returns cudaErrorInvalidValue.
+int gcn_spmm_fused_f32(const void* work, const void* items, const void* vals,
+                       const void* h, const void* w, const void* b, void* u,
+                       void* z, void* zbuf, void* scratch, void* counters,
+                       int P, int n_work, int n_items, int nrb, int n_tiles,
+                       int h_rows, int num_rows, int Fin, int Fout, int FB,
+                       int ON, int relu, void* stream) {
+  const FusedArgs a{static_cast<const int*>(work),
+                    static_cast<const int*>(items),
+                    static_cast<const float*>(vals),
+                    static_cast<const float*>(h),
+                    static_cast<const float*>(w),
+                    static_cast<const float*>(b),
+                    static_cast<float*>(u),
+                    static_cast<float*>(z),
+                    static_cast<float*>(zbuf),
+                    static_cast<float*>(scratch),
+                    static_cast<int*>(counters),
+                    P, n_work, n_items, nrb, n_tiles, h_rows, num_rows, Fin,
+                    Fout, relu, static_cast<cudaStream_t>(stream)};
+  return launch_fused<false>(a, FB, ON);
+}
+
+// dcomb[p] = (P_pᵀ · du[p]) · wᵀ = P_pᵀ · (du[p] · wᵀ). The transpose
+// schedule and vals as for gcn_spmm_t_f32, du (P, du_rows, Fout) (F =
+// Fout), w (Fin, Fout), dcomb (P, num_cols, Fin); zbuf ≥
+// P·ncb·128·ceil(Fout/FB)·FB floats; the rest as for gcn_spmm_fused_f32
+// with ncb = ceil(num_cols/128) output blocks.
+int gcn_spmm_fused_t_f32(const void* t_work, const void* t_items,
+                         const void* vals, const void* du, const void* w,
+                         void* dcomb, void* zbuf, void* scratch,
+                         void* counters, int P, int n_work, int n_items,
+                         int ncb, int n_tiles, int du_rows, int num_cols,
+                         int Fin, int Fout, int FB, int ON, void* stream) {
+  const FusedArgs a{static_cast<const int*>(t_work),
+                    static_cast<const int*>(t_items),
+                    static_cast<const float*>(vals),
+                    static_cast<const float*>(du),
+                    static_cast<const float*>(w),
+                    nullptr,
+                    static_cast<float*>(dcomb),
+                    nullptr,
+                    static_cast<float*>(zbuf),
+                    static_cast<float*>(scratch),
+                    static_cast<int*>(counters),
+                    P, n_work, n_items, ncb, n_tiles, du_rows, num_cols, Fout,
+                    Fin, 0, static_cast<cudaStream_t>(stream)};
+  return launch_fused<true>(a, FB, ON);
 }
 
 // Dynamic shared memory of one thread block at column block FB (the ring

@@ -13,12 +13,13 @@ of tiles. The two products run on hand-written CUDA kernels for Hopper
     spmm_t(t_work, t_items, t_out, t_in, t_perm, vals, dz, num_cols)
                                                                  δcomb = Pᵀ·δz
 
-The fused aggregate+transform pair (``csrc/gcn_fused.cu``) replaces the
-Pallas kernels ``spmm_block_sparse_fused`` and ``spmm_block_sparse_fused_t``:
+The fused aggregate+transform pair, kernels of the same source, replaces
+the Pallas kernels ``spmm_block_sparse_fused`` and
+``spmm_block_sparse_fused_t``:
 
-    spmm_fused(row_ptr, live, rows, cols, vals, h, w, b, num_rows,
+    spmm_fused(work, items, rows, cols, vals, h, w, b, num_rows,
                relu, with_z)                 u = (P·h)@w + b [ReLU], z = P·h
-    spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
+    spmm_fused_t(t_work, t_items, t_out, t_in, t_perm, vals, du, w,
                  num_cols)                                δcomb = Pᵀ·(du@wᵀ)
 
 The split-phase schedule runs the spmm pair one phase at a time
@@ -35,16 +36,18 @@ partition). A CUDA tensor goes to the kernel and a CPU tensor to the plain
 PyTorch version beside it (``spmm_plain`` / ``spmm_t_plain``, the einsum +
 ``index_add_`` form of the JAX package's dense oracle, and
 ``spmm_fused_plain`` / ``spmm_fused_t_plain``, those plus a dense product);
-nothing falls back from one to the other. The spmm kernels walk only the
+nothing falls back from one to the other. The kernels walk only the
 nonzero tiles, from a schedule built once per topology
 (``tile_schedule``): each output block's run of nonzero tiles cut into
 work items of at most ``SCHED_CHUNK`` tiles, one thread block each, whose
 partial sums the run's last block adds in chunk order; they multiply on
-the tensor cores in 3×TF32, at f32 accuracy. The fused kernels use the
-run pointers (``run_pointers``) over the sorted streams, cut at each
-stream's live length (``live_lengths``: the slots past the last nonzero
-tile hold only padding). The plain versions walk the whole block index
-streams. Each wrapper's ``launches`` attribute counts its kernel launches.
+the tensor cores in 3×TF32, at f32 accuracy. The fused kernels aggregate
+on the same schedules (the transpose at F_out: it computes (Pᵀ·du)@wᵀ)
+and run the dense product once per output block, in 4×TF32 epilogue
+passes of at most 64 columns that other thread blocks of the same launch
+take up as the blocks' aggregates complete. The plain versions walk the
+whole block index streams. Each wrapper's ``launches`` attribute counts
+its kernel launches.
 
 Tile extraction (``build_tile_topology`` and the padding helpers) is a
 numpy copy of the JAX package's and builds the same arrays byte for byte.
@@ -209,9 +212,9 @@ def assert_close_to_scale(got, want, what: str = "") -> float:
 # ----------------------------------------------------------------------
 
 _ARGTYPES = {      # C entry point -> (pointer args, int args), then the stream
-    "gcn_spmm": {"gcn_spmm_f32": (7, 11), "gcn_spmm_t_f32": (7, 11)},
-    "gcn_fused": {"gcn_spmm_fused_f32": (9, 8),
-                  "gcn_spmm_fused_t_f32": (8, 7)},
+    "gcn_spmm": {"gcn_spmm_f32": (7, 11), "gcn_spmm_t_f32": (7, 11),
+                 "gcn_spmm_fused_f32": (11, 12),
+                 "gcn_spmm_fused_t_f32": (9, 11)},
 }
 
 
@@ -225,29 +228,6 @@ def _library(name: str):
             getattr(lib, fn).restype = ci
         lib._argtypes_set = True
     return lib
-
-
-def _check_kernel_args(ptr, live, idx, vals, x, nblocks: int, name: str):
-    """Device, dtype, shape and contiguity checks before a kernel launch."""
-    tensors = [t for t in idx] + [ptr, live, vals, x]
-    dev = x.device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: all tensors must be on {dev}")
-    if x.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 tiles and "
-                        f"features, got {vals.dtype} / {x.dtype}")
-    if any(t.dtype != torch.int32 for t in [ptr, live, *idx]):
-        raise TypeError(f"{name}: index streams and run pointers must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous")
-    p, n = idx[0].shape
-    if (x.dim() != 3 or x.shape[0] != p or ptr.shape != (p, nblocks + 1)
-            or live.shape != (p,)
-            or vals.shape != (p, n, TILE, TILE)
-            or any(t.shape != (p, n) for t in idx)):
-        raise ValueError(f"{name}: inconsistent shapes ptr {tuple(ptr.shape)}, "
-                         f"streams {[tuple(t.shape) for t in idx]}, vals "
-                         f"{tuple(vals.shape)}, input {tuple(x.shape)}")
 
 
 def _check_weight(w, b, x, name: str, fin: int | None = None,
@@ -314,11 +294,14 @@ _WORKSPACE: dict = {}
 def _workspace(device, dtype: torch.dtype, n: int) -> torch.Tensor:
     """A zeroed buffer of at least n elements of `dtype` on `device`, kept
     for later launches. The int32 one holds the arrival counters, one per
-    (partition, output block, column slice) of a launch: the last block to
-    arrive at a counter sets it back to zero. The float32 one holds the
-    (128, FB) partials of the work items of runs cut in several items,
-    written and read within one launch. Launches that share them must be
-    ordered on one stream, as the port's compute stream orders them."""
+    (partition, output block, column slice) of a launch, and the fused
+    kernels' run and pass counters, one each per (partition, output
+    block), and their ticket: each is set back to zero by the launch that
+    counts it. The float32 one holds the (128, FB) partials of the work
+    items of runs cut in several items and the fused kernels' aggregate
+    (zbuf), written and read within one launch. Launches that share them
+    must be ordered on one stream, as the port's compute stream orders
+    them."""
     buf = _WORKSPACE.get((device, dtype))
     if buf is None or buf.numel() < n:
         buf = _WORKSPACE[device, dtype] = torch.zeros(
@@ -460,40 +443,71 @@ def spmm_t_phased(t_work, t_items, t_out, t_in, t_perm, vals, dz,
 
 spmm_t_phased.launches = 0
 
-FUSED_MAX_FIN = 512     # 8 blocks of 64 columns: the portable cluster size
+def epilogue_block(n_out: int) -> int:
+    """Output columns one epilogue pass of a fused kernel covers, for
+    n_out output columns: 16 where that holds them, else 64 (then
+    ceil(n_out/64) passes)."""
+    return 16 if n_out <= 16 else 64
 
 
-def spmm_fused(row_ptr, live, rows, cols, vals, h, w, b, num_rows: int,
+def _launch_fused(transpose: bool, work, items, vals, x, w, b, out, z,
+                  num_out: int, relu: bool, name: str):
+    """The fused kernel: out = (P·x)·w + b (ReLU'd when `relu`), z = P·x
+    when z is not None; transposed: out = (Pᵀ·x)·wᵀ. The aggregate waits
+    for the epilogue passes in z or in a workspace region (zbuf) beside
+    the spmm kernels' partials."""
+    nb = -(-num_out // TILE)
+    p, n_tiles = vals.shape[:2]
+    f = x.shape[2]
+    fb = feature_block(f)
+    on = epilogue_block(out.shape[2])
+    slices = -(-f // fb)
+    n_items = items.shape[1]
+    n_scratch = p * n_items * slices * TILE * fb
+    fws = _workspace(x.device, torch.float32,
+                     n_scratch + p * nb * TILE * slices * fb)
+    counters = _workspace(x.device, torch.int32,
+                          p * nb * (slices + 2) + 1).data_ptr()
+    lib = _library("gcn_spmm")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    zbuf = fws.data_ptr() + 4 * n_scratch
+    if transpose:
+        code = lib.gcn_spmm_fused_t_f32(
+            work.data_ptr(), items.data_ptr(), vals.data_ptr(), x.data_ptr(),
+            w.data_ptr(), out.data_ptr(), zbuf, fws.data_ptr(), counters, p,
+            work.shape[1], n_items, nb, n_tiles, x.shape[1], num_out,
+            w.shape[0], f, fb, on, stream)
+    else:
+        code = lib.gcn_spmm_fused_f32(
+            work.data_ptr(), items.data_ptr(), vals.data_ptr(), x.data_ptr(),
+            w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if z is None else z.data_ptr(), zbuf, fws.data_ptr(),
+            counters, p, work.shape[1], n_items, nb, n_tiles, x.shape[1],
+            num_out, f, w.shape[1], fb, on, int(relu), stream)
+    _raise_on_error(code, name)
+
+
+def spmm_fused(work, items, rows, cols, vals, h, w, b, num_rows: int,
                relu: bool = False, with_z: bool = True):
     """Fused block-sparse u = (P·h) @ w + b over all partitions, aggregate
     first, with an optional ReLU epilogue and the residual z = P·h.
 
-    Stream arguments as for `spmm`; h (P, C, F_in), w (F_in, F_out), b
-    (F_out,). Returns (u (P, num_rows, F_out), z (P, num_rows, F_in) or
-    None without `with_z`). On CUDA: float32, contiguous, F_in ≤ 512, one
-    kernel launch; z stays on chip unless asked for."""
+    Schedule and stream arguments as for `spmm`; h (P, C, F_in), w (F_in,
+    F_out), b (F_out,). Returns (u (P, num_rows, F_out), z (P, num_rows,
+    F_in) or None without `with_z`). On CUDA: float32, contiguous, one
+    kernel launch; z is bit-equal to `spmm`'s."""
     if not h.is_cuda:
         return spmm_fused_plain(rows, cols, vals, h, w, b, num_rows,
                                 relu=relu, with_z=with_z)
-    nrb = -(-num_rows // TILE)
-    _check_kernel_args(row_ptr, live, (cols,), vals, h, nrb, "spmm_fused")
-    p, n = cols.shape
-    fin = h.shape[2]
+    _check_schedule(work, items, vals, h, "spmm_fused")
+    p, fin = h.shape[0], h.shape[2]
     _check_weight(w, b, h, "spmm_fused", fin=fin)
-    if fin > FUSED_MAX_FIN:
-        raise ValueError(f"spmm_fused: F_in {fin} > {FUSED_MAX_FIN} (one "
-                         "thread-block cluster holds the z row block)")
-    fout = w.shape[1]
-    u = torch.empty(p, num_rows, fout, device=h.device, dtype=torch.float32)
+    u = torch.empty(p, num_rows, w.shape[1], device=h.device,
+                    dtype=torch.float32)
     z = (torch.empty(p, num_rows, fin, device=h.device, dtype=torch.float32)
          if with_z else None)
-    code = _library("gcn_fused").gcn_spmm_fused_f32(
-        row_ptr.data_ptr(), live.data_ptr(), cols.data_ptr(),
-        vals.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(),
-        u.data_ptr(), z.data_ptr() if with_z else None, p, nrb, n,
-        h.shape[1], num_rows, fin, fout, int(relu),
-        torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on_error(code, "spmm_fused")
+    _launch_fused(False, work, items, vals, h, w, b, u, z, num_rows, relu,
+                  "spmm_fused")
     spmm_fused.launches += 1
     return u, z
 
@@ -501,29 +515,23 @@ def spmm_fused(row_ptr, live, rows, cols, vals, h, w, b, num_rows: int,
 spmm_fused.launches = 0
 
 
-def spmm_fused_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
+def spmm_fused_t(t_work, t_items, t_out, t_in, t_perm, vals, du, w,
                  num_cols: int) -> torch.Tensor:
     """Fused block-sparse δcomb = Pᵀ·(du @ wᵀ) over all partitions; the
-    (rows, F_in) product du @ wᵀ is never built, nor wᵀ.
+    kernel computes it as (Pᵀ·du) @ wᵀ, aggregating at F_out, and builds
+    neither du @ wᵀ nor wᵀ.
 
-    Stream arguments as for `spmm_t`; du (P, R, F_out), w (F_in, F_out).
-    Returns δcomb (P, num_cols, F_in). On CUDA: float32, contiguous, one
-    kernel launch."""
+    Schedule and stream arguments as for `spmm_t`; du (P, R, F_out), w
+    (F_in, F_out). Returns δcomb (P, num_cols, F_in). On CUDA: float32,
+    contiguous, one kernel launch."""
     if not du.is_cuda:
         return spmm_fused_t_plain(t_out, t_in, t_perm, vals, du, w, num_cols)
-    ncb = -(-num_cols // TILE)
-    _check_kernel_args(col_ptr, t_live, (t_in, t_perm), vals, du, ncb,
-                       "spmm_fused_t")
-    p, n = t_in.shape
+    _check_schedule(t_work, t_items, vals, du, "spmm_fused_t")
     _check_weight(w, None, du, "spmm_fused_t", fout=du.shape[2])
-    fin = w.shape[0]
-    out = torch.empty(p, num_cols, fin, device=du.device, dtype=torch.float32)
-    code = _library("gcn_fused").gcn_spmm_fused_t_f32(
-        col_ptr.data_ptr(), t_live.data_ptr(), t_in.data_ptr(),
-        t_perm.data_ptr(), vals.data_ptr(), du.data_ptr(), w.data_ptr(),
-        out.data_ptr(), p, ncb, n, du.shape[1], num_cols, fin, du.shape[2],
-        torch.cuda.current_stream(du.device).cuda_stream)
-    _raise_on_error(code, "spmm_fused_t")
+    out = torch.empty(du.shape[0], num_cols, w.shape[0], device=du.device,
+                      dtype=torch.float32)
+    _launch_fused(True, t_work, t_items, vals, du, w, None, out, None,
+                  num_cols, False, "spmm_fused_t")
     spmm_fused_t.launches += 1
     return out
 
@@ -536,20 +544,6 @@ def run_pointers(stream: np.ndarray, num_blocks: int) -> np.ndarray:
     the slots of output block b in partition p are [ptr[p, b], ptr[p, b+1])."""
     edges = np.arange(num_blocks + 1)
     return np.stack([np.searchsorted(s, edges) for s in stream]).astype(np.int32)
-
-
-def live_lengths(vals: np.ndarray, t_perm: np.ndarray | None = None) -> np.ndarray:
-    """(P,) int32 live length of each partition's stream: one past the last
-    slot holding a nonzero tile — vals[p, s] for the forward stream, or
-    vals[p, t_perm[p, s]] for the transpose stream. The slots beyond hold
-    the all-zero tiles that pad the partitions to one stream length; the
-    kernels stop there."""
-    nonzero = np.abs(vals).max(axis=(-1, -2)) > 0
-    if t_perm is not None:
-        nonzero = np.take_along_axis(nonzero, t_perm.astype(np.int64), axis=1)
-    n = nonzero.shape[1]
-    last = n - np.argmax(nonzero[:, ::-1], axis=1)
-    return np.where(nonzero.any(axis=1), last, 0).astype(np.int32)
 
 
 # Nonzero tiles per work item. One item is one thread block's serial walk,

@@ -35,11 +35,12 @@ def toward_zero(x64):
         np.float64).astype(np.float32)
 
 
-def split(x):
+def split(x, lo_rounded: bool = False):
     """The 3×TF32 split of an f32 array: (hi, lo) as the tensor cores read
-    them."""
+    them; lo rounded to nearest (a second cvt.rna) when `lo_rounded`, as
+    the fused kernels' 4×TF32 epilogue splits."""
     hi = rna(x)
-    return hi, truncate(x - hi)
+    return hi, (rna if lo_rounded else truncate)(x - hi)
 
 
 def mma_chain(acc, a, b, passes: int, k_step: int = 8):

@@ -50,8 +50,8 @@ def test_cuda_kernels_match_plain(f):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     streams = _random_streams(300, 1000, 2000)
-    live = gcn_spmm.live_lengths(streams["vals"])
-    assert (live < streams["rows"].shape[1]).any()   # padding gets skipped
+    nonzero = np.abs(streams["vals"]).max(axis=(-1, -2)) > 0
+    assert not nonzero[:, -1].all()   # zero padding tiles, skipped
     dev = "cuda"
     st = {k: torch.from_numpy(v).to(dev) for k, v in streams.items()}
     sch = _schedules(streams, 300, 1000)
@@ -157,28 +157,22 @@ def test_cuda_wrapper_refuses_float64():
 
 
 def _card_streams(rows, cols, nnz, parts=3):
-    """Device tile streams, run pointers, live lengths and spmm schedules
-    of random shards."""
+    """Device tile streams and spmm schedules of random shards."""
     streams = _random_streams(rows, cols, nnz, parts)
     st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
-    st["row_ptr"] = torch.from_numpy(gcn_spmm.run_pointers(
-        streams["rows"], -(-rows // 128))).cuda()
-    st["col_ptr"] = torch.from_numpy(gcn_spmm.run_pointers(
-        streams["t_out"], -(-cols // 128))).cuda()
-    st["live"] = torch.from_numpy(gcn_spmm.live_lengths(streams["vals"])).cuda()
-    st["t_live"] = torch.from_numpy(gcn_spmm.live_lengths(
-        streams["vals"], streams["t_perm"])).cuda()
     st.update(_schedules(streams, rows, cols))
     return st
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fin,fout", [(128, 256), (256, 16), (120, 24),
-                                      (512, 512)])
+                                      (512, 512), (1024, 256)])
 @pytest.mark.parametrize("relu,with_z", [(False, True), (True, False)])
 def test_cuda_fused_kernel_matches_plain(fin, fout, relu, with_z):
     """spmm_fused against spmm_fused_plain on the card, f32, ragged rows
-    and widths, with zero padding tiles past the live lengths."""
+    and widths, with zero padding tiles at the stream tails; any F_in (1024
+    included: the kernel keeps no z row block on chip); z bit-equal to
+    spmm's, and a second launch bitwise equal to the first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     st = _card_streams(300, 1000, 2000)
@@ -188,25 +182,28 @@ def test_cuda_fused_kernel_matches_plain(fin, fout, relu, with_z):
     b = torch.randn(fout, device="cuda")
     before = gcn_spmm.spmm_fused.launches
     # w[:fin] is the row slice a SAGE layer passes
-    u, z = gcn_spmm.spmm_fused(st["row_ptr"], st["live"], st["rows"],
-                               st["cols"], st["vals"], h, w[:fin], b, 300,
-                               relu=relu, with_z=with_z)
+    args = (st["work"], st["items"], st["rows"], st["cols"], st["vals"], h,
+            w[:fin], b, 300)
+    u, z = gcn_spmm.spmm_fused(*args, relu=relu, with_z=with_z)
     torch.cuda.synchronize()
-    pu, pz = gcn_spmm.spmm_fused_plain(st["rows"], st["cols"], st["vals"], h,
-                                       w[:fin], b, 300, relu=relu,
-                                       with_z=with_z)
+    pu, pz = gcn_spmm.spmm_fused_plain(*args[2:], relu=relu, with_z=with_z)
     assert gcn_spmm.spmm_fused.launches == before + 1
     gcn_spmm.assert_close_to_scale(u, pu)
     if with_z:
         gcn_spmm.assert_close_to_scale(z, pz)
+        assert torch.equal(z, gcn_spmm.spmm(*args[:6], 300))
     else:
         assert z is None
+    u2, z2 = gcn_spmm.spmm_fused(*args, relu=relu, with_z=with_z)
+    assert torch.equal(u2, u) and (z2 is None or torch.equal(z2, z))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fin,fout", [(256, 256), (256, 16), (120, 24),
                                       (512, 512)])
 def test_cuda_fused_t_kernel_matches_plain(fin, fout):
+    """spmm_fused_t against spmm_fused_t_plain on the card, and a second
+    launch bitwise equal to the first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     st = _card_streams(300, 1000, 2000)
@@ -214,23 +211,61 @@ def test_cuda_fused_t_kernel_matches_plain(fin, fout):
     du = torch.randn(parts, 300, fout, device="cuda")
     w = torch.randn(fin, fout, device="cuda") / fout ** 0.5
     before = gcn_spmm.spmm_fused_t.launches
-    d = gcn_spmm.spmm_fused_t(st["col_ptr"], st["t_live"], st["t_out"],
-                              st["t_in"], st["t_perm"], st["vals"], du, w,
-                              1000)
+    args = (st["t_work"], st["t_items"], st["t_out"], st["t_in"],
+            st["t_perm"], st["vals"], du, w, 1000)
+    d = gcn_spmm.spmm_fused_t(*args)
     torch.cuda.synchronize()
     assert gcn_spmm.spmm_fused_t.launches == before + 1
-    gcn_spmm.assert_close_to_scale(d, gcn_spmm.spmm_fused_t_plain(
-        st["t_out"], st["t_in"], st["t_perm"], st["vals"], du, w, 1000))
+    gcn_spmm.assert_close_to_scale(d, gcn_spmm.spmm_fused_t_plain(*args[2:]))
+    assert torch.equal(gcn_spmm.spmm_fused_t(*args), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fin,fout", [(24, 4), (512, 512)])
+def test_cuda_fused_kernels_walk_long_runs(fin, fout):
+    """The fused pair on runs of 320+ slots (far longer than SCHED_CHUNK
+    tiles) with zero tiles mid-stream and empty output blocks: within
+    assert_close_to_scale of the plain versions, z bit-equal to spmm's,
+    and the schedules that walk every slot (zero tiles too) bit-equal to
+    the nonzero ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n, streams = _long_run_streams()
+    st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
+    sch = _schedules(streams, n, n)
+    full = _schedules(streams, n, n, walk_all=True)
+    h = torch.randn(2, n, fin, device="cuda")
+    w = torch.randn(fin, fout, device="cuda") / fin ** 0.5
+    b = torch.randn(fout, device="cuda")
+    du = torch.randn(2, n, fout, device="cuda")
+    fwd = (st["rows"], st["cols"], st["vals"], h, w, b, n)
+    u, z = gcn_spmm.spmm_fused(sch["work"], sch["items"], *fwd)
+    u_all, z_all = gcn_spmm.spmm_fused(full["work"], full["items"], *fwd)
+    torch.cuda.synchronize()
+    pu, pz = gcn_spmm.spmm_fused_plain(*fwd)
+    gcn_spmm.assert_close_to_scale(u, pu)
+    gcn_spmm.assert_close_to_scale(z, pz)
+    assert torch.equal(z, gcn_spmm.spmm(sch["work"], sch["items"], *fwd[:4],
+                                        n))
+    assert torch.equal(u_all, u) and torch.equal(z_all, z)
+    assert torch.all(u[:, 320 * 128:] == b)          # the empty blocks
+    bwd = (st["t_out"], st["t_in"], st["t_perm"], st["vals"], du, w, n)
+    d = gcn_spmm.spmm_fused_t(sch["t_work"], sch["t_items"], *bwd)
+    d_all = gcn_spmm.spmm_fused_t(full["t_work"], full["t_items"], *bwd)
+    torch.cuda.synchronize()
+    gcn_spmm.assert_close_to_scale(d, gcn_spmm.spmm_fused_t_plain(*bwd))
+    assert torch.equal(d_all, d)
+    assert torch.all(d[:, 320 * 128:] == 0)
 
 
 @pytest.mark.cuda
 def test_cuda_fused_wrappers_refuse_what_the_kernels_do_not_take():
-    """float64, a non-contiguous (transposed) weight, F_in > 512."""
+    """float64 and a non-contiguous (transposed) weight."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     st = _card_streams(128, 256, 100, parts=1)
-    fwd = (st["row_ptr"], st["live"], st["rows"], st["cols"], st["vals"])
-    bwd = (st["col_ptr"], st["t_live"], st["t_out"], st["t_in"],
+    fwd = (st["work"], st["items"], st["rows"], st["cols"], st["vals"])
+    bwd = (st["t_work"], st["t_items"], st["t_out"], st["t_in"],
            st["t_perm"], st["vals"])
     h = torch.randn(1, 256, 8, device="cuda")
     w = torch.randn(8, 8, device="cuda")
@@ -246,9 +281,6 @@ def test_cuda_fused_wrappers_refuse_what_the_kernels_do_not_take():
         gcn_spmm.spmm_fused(*fwd, h, w.T, b, 128)
     with pytest.raises(ValueError, match="contiguous"):
         gcn_spmm.spmm_fused_t(*bwd, du, w.T, 256)
-    with pytest.raises(ValueError, match="512"):
-        gcn_spmm.spmm_fused(*fwd, torch.randn(1, 256, 520, device="cuda"),
-                            torch.randn(520, 8, device="cuda"), b, 128)
 
 
 def _split_pipeline():

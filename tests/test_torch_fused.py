@@ -12,6 +12,8 @@ JAX package's, on the same numpy-seeded inputs.
 The CUDA kernels are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,16 +65,15 @@ def _shards(R, C, parts=3, density=0.05, seed=0):
 
 
 def _port_tslice(tts, R, C, dtype=torch.float32):
-    """The fused engine's Topology fields, stacked over partitions."""
+    """The fused engine's Topology fields (the kernels' schedules and the
+    tile streams), stacked over partitions."""
     st = {k: np.stack([getattr(t, k) for t in tts]) for k in FIELDS}
     t = {k: torch.from_numpy(v) for k, v in st.items()}
     t["vals"] = t["vals"].to(dtype)
-    ptr_r = torch.from_numpy(gcn_spmm.run_pointers(st["rows"], -(-R // T)))
-    ptr_c = torch.from_numpy(gcn_spmm.run_pointers(st["t_out"], -(-C // T)))
-    live = torch.from_numpy(gcn_spmm.live_lengths(st["vals"]))
-    t_live = torch.from_numpy(gcn_spmm.live_lengths(st["vals"], st["t_perm"]))
-    return (ptr_r, live, t["rows"], t["cols"], t["vals"], ptr_c, t_live,
-            t["t_out"], t["t_in"], t["t_perm"])
+    sch = {k: torch.from_numpy(v) for k, v in gcn_spmm.tile_schedules(
+        SimpleNamespace(**st), R, C).items()}
+    return (sch["work"], sch["items"], t["rows"], t["cols"], t["vals"],
+            sch["t_work"], sch["t_items"], t["t_out"], t["t_in"], t["t_perm"])
 
 
 def _jax_tslice(tt, dtype):
@@ -286,14 +287,14 @@ def test_fused_engine_hands_the_kernels_contiguous_operands(kind, monkeypatch):
     seen = []
     real_fwd, real_t = gcn_spmm.spmm_fused, gcn_spmm.spmm_fused_t
 
-    def fwd(row_ptr, live, rows, cols, vals, h, w, b, num_rows, **kw):
+    def fwd(work, items, rows, cols, vals, h, w, b, num_rows, **kw):
         seen.append(("fwd", [t.is_contiguous() for t in (h, w, b)]))
-        return real_fwd(row_ptr, live, rows, cols, vals, h, w, b, num_rows,
+        return real_fwd(work, items, rows, cols, vals, h, w, b, num_rows,
                         **kw)
 
-    def bwd(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w, num_cols):
+    def bwd(t_work, t_items, t_out, t_in, t_perm, vals, du, w, num_cols):
         seen.append(("bwd", [t.is_contiguous() for t in (du, w)]))
-        return real_t(col_ptr, t_live, t_out, t_in, t_perm, vals, du, w,
+        return real_t(t_work, t_items, t_out, t_in, t_perm, vals, du, w,
                       num_cols)
 
     monkeypatch.setattr(gcn_spmm, "spmm_fused", fwd)
