@@ -128,6 +128,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
              reddit-sim and yelp-sim with agg=blocksparse and agg=fused
              (auto order), and of yelp-sim P=2 and grid-sim P=4 unsplit
              and split, timed in turns within this run.
+  7a. wire   the boundary wire codecs (core/codec.py: f32, bf16, int8,
+             int4, auto) and feature slicing; every line carries the card's
+             name and power limit:
+             - encoders: each codec's encode / decode on the card equals
+               the CPU's byte for byte on the first train step's real
+               payloads (blocksparse/auto, sliced, per-layer exchange) at
+               reddit-sim's widths 128, 256, 16 and yelp-sim's 120, 512,
+               24; encode + decode timed per payload;
+             - bytes: the bytes one reddit-sim P=4 train step hands the
+               exchange (RecordingBackend) equal BENCH_8.json's
+               meta.wire_bytes for f32, bf16, int8 and int4; the sliced
+               auto plan's bytes beside them;
+             - step: 2 reddit-sim steps (blocksparse/auto) under the int8
+               wire against the COO engine in float64 under the same wire,
+               at STEP_REL, the f32 wire's reading beside it, and the
+               count of bytes that differ between the two runs' layer-0
+               and layer-1 forward wires;
+             - split: yelp-sim P=2 and grid-sim P=4 under int8, split
+               bit-equal to unsplit, exact launch counts;
+             - train: 5-epoch runs of reddit-sim blocksparse/auto under
+               bf16, int8 and auto --slice-boundary, and of grid-sim under
+               auto --slice-boundary (a mixed int8 + bf16 plan), each with
+               exact launch counts and a finite loss, beside the f32 run;
+             - step times: the reddit-sim train step under f32, bf16 and
+               int8 in turns (median of 20 each), with the device
+               launches and busy time of one profiled step each (the
+               codec's launches per step = the difference to f32's).
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -799,37 +826,43 @@ def graph_name(pipeline) -> str:
     return f"{pipeline.dataset.name} P={pipeline.topo.num_parts}"
 
 
-def train_run(pipeline, agg, order):
-    """One main path: train_pipegcn for EPOCHS epochs, with every launch
-    count zeroed just before and read just after; the counts must equal
-    expected_launches."""
+def train_run(pipeline, agg, order, pipe=None, what=""):
+    """One main path: train_pipegcn for EPOCHS epochs under `pipe`
+    (default the pipegcn variant), with every launch count zeroed just
+    before and read just after; the counts must equal expected_launches.
+    `what` names the pipe in the log lines."""
+    import dataclasses
     from repro_torch.core import PipeConfig, PipeGCN, train_pipegcn
     from repro_torch.core.pipegcn import SimBackend
     from repro_torch.core.trace_utils import expected_boundary_collectives
     name = graph_name(pipeline)
+    pipe = PipeConfig.named("pipegcn") if pipe is None else pipe
+    tag = f"{name} {agg}/{order}{what}"
     mc, lr = _model_config(pipeline, agg, order)
     reset_launches()
     SimBackend.side_copies = 0
-    res = train_pipegcn(pipeline, mc, PipeConfig.named("pipegcn"),
+    res = train_pipegcn(pipeline, mc, pipe,
                         epochs=EPOCHS, lr=lr, seed=0, eval_every=EVAL_EVERY,
-                        log=lambda s: log(f"train {name} {agg}/{order}: {s}"),
+                        log=lambda s: log(f"train {tag}: {s}"),
                         device="cuda")
     launches = read_launches()
     copies = SimBackend.side_copies
-    model = PipeGCN(mc, PipeConfig.named("pipegcn"),
-                    split=pipeline.split_spec())
+    model = PipeGCN(mc, pipe, split=pipeline.split_spec())
     n_eval = len(res.history["epoch"])
     expect = expected_launches(model, pipeline.topo, EPOCHS, n_eval)
     assert all(math.isfinite(v) for v in res.history["loss"]), res.history
-    assert launches == expect, (name, agg, order, launches, expect)
+    assert launches == expect, (tag, launches, expect)
     # the split starts every exchange on the side stream: 2 per fused
-    # train step, L per (vanilla) eval forward; the unsplit step none
+    # train step (2L-1 per layer), L per (vanilla) eval forward; the
+    # unsplit step none (feature slicing keeps training unsplit)
     L = mc.num_layers
-    want = (EPOCHS * expected_boundary_collectives(L, True) + n_eval * L
-            if model._split_active() is not None else 0)
-    assert copies == want, (name, agg, order, copies, want)
+    evaluator = dataclasses.replace(model, pipe=PipeConfig.vanilla())
+    want = ((EPOCHS * expected_boundary_collectives(L, pipe.fused)
+             if model._split_active() is not None else 0)
+            + (n_eval * L if evaluator._split_active() is not None else 0))
+    assert copies == want, (tag, copies, want)
     launches["side_stream_copies"] = copies
-    log(f"train {name} {agg}/{order}: loss {res.history['loss'][-1]:.4f} "
+    log(f"train {tag}: loss {res.history['loss'][-1]:.4f} "
         f"val {res.final_metrics['val']:.4f} epochs/s "
         f"{res.epochs_per_sec:.3f} launches {launches} ({EPOCHS} steps, "
         f"{n_eval} evals)")
@@ -1379,6 +1412,326 @@ def phase_split_step_times(split_pipes):
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase "wire": the boundary wire codecs (core/codec.py) and feature
+# slicing on the card
+# ---------------------------------------------------------------------
+
+WIRE_WIDTHS = {"reddit-sim": (16, 128, 256), "yelp-sim": (24, 120, 512)}
+
+
+def _capture(inner):
+    """A RecordingBackend around `inner` that also keeps every tensor it
+    hands the exchange, in order, in `sent`."""
+    from repro_torch.core.trace_utils import RecordingBackend
+
+    class Capture(RecordingBackend):
+        def __init__(self, inner):
+            super().__init__(inner)
+            self.sent = []
+
+        def exchange(self, s):
+            self.sent.append(s)
+            return super().exchange(s)
+
+        def start_exchange(self, s):
+            self.sent.append(s)
+            return super().start_exchange(s)
+
+    return Capture(inner)
+
+
+def _raw(t):
+    """The bytes of a tensor (any dtype), flat, on the host."""
+    import torch
+    return t.contiguous().reshape(-1).view(torch.uint8).cpu()
+
+
+def _wire_encoders(pipeline, card):
+    """Every codec on the first train step's real payloads of the graph's
+    full-width model (blocksparse/auto, sliced, per-layer exchange, so
+    each exchanged tensor is one layer's f32 payload): the card's wire
+    and its decode equal the CPU's byte for byte; encode + decode timed
+    with CUDA events per payload."""
+    import torch
+    from repro_torch.core import codec
+    from repro_torch.core.pipegcn import SimBackend
+    name = pipeline.dataset.name
+    model, _ = split_model(pipeline, "blocksparse", dropout=0.0,
+                           fuse_exchange=False, slice_boundary=True)
+    cap = _capture(SimBackend())
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    model.train_step(pipeline.topo, params,
+                     model.init_buffers(pipeline.topo), pipeline.train_data,
+                     backend=cap)
+    payloads = {}
+    for s in cap.sent:
+        payloads.setdefault(int(s.shape[-1]), s)
+    assert tuple(sorted(payloads)) == WIRE_WIDTHS[name], sorted(payloads)
+    rows = []
+    for f, x in sorted(payloads.items()):
+        assert x.dtype == torch.float32 and x.is_cuda
+        for wire in codec.WIRE_FORMATS:
+            c = codec.make_codec(wire)
+            w_card, w_cpu = c.encode(x), c.encode(x.cpu())
+            assert w_card.dtype == w_cpu.dtype and w_card.is_cuda
+            assert torch.equal(_raw(w_card), _raw(w_cpu)), (name, f, wire)
+            d_card = c.decode(w_card, f, torch.float32)
+            d_cpu = c.decode(w_cpu, f, torch.float32)
+            assert torch.equal(_raw(d_card), _raw(d_cpu)), (name, f, wire)
+            ms = cuda_time_ms(lambda: c.decode(c.encode(x), f, torch.float32),
+                              reps=20)
+            rows.append(dict(graph=name, f=f, wire=wire,
+                             shape=list(x.shape),
+                             wire_bytes=w_card.numel() * w_card.element_size(),
+                             encode_decode_ms=ms,
+                             max_abs_err=float((d_card - x).abs().max())))
+    log(f"wire encoders [{card}]: {name} payloads {sorted(payloads)} x "
+        f"{list(codec.WIRE_FORMATS)}: card wires == CPU wires and card "
+        "decodes == CPU decodes, byte for byte")
+    for r in rows:
+        log(f"wire encoders [{card}]: " + json.dumps(r))
+    return rows
+
+
+def _wire_bytes(reddit, card):
+    """The bytes one reddit-sim P=4 train step (fused exchange, the
+    published model) hands the exchange under each wire, counted by
+    RecordingBackend on the card, against BENCH_8.json's meta.wire_bytes;
+    the sliced auto plan beside them."""
+    from repro_torch.core.trace_utils import step_wire_bytes
+    with open(os.path.join(ROOT, "benchmarks", "baselines",
+                           "BENCH_8.json")) as f:
+        want = json.load(f)["meta"]["wire_bytes"]
+    got = {}
+    for wire in ("f32", "bf16", "int8", "int4"):
+        model, _ = split_model(reddit, "blocksparse", dropout=0.0, wire=wire)
+        got[wire] = step_wire_bytes(model, reddit.topo, reddit.train_data)
+        assert got[wire] == want[wire]["bytes"], (wire, got[wire], want[wire])
+    model, _ = split_model(reddit, "blocksparse", dropout=0.0, wire="auto",
+                           slice_boundary=True)
+    got["auto --slice-boundary"] = step_wire_bytes(model, reddit.topo,
+                                                   reddit.train_data)
+    plan = [f"{c.name}x{w}" for c, w in zip(
+        model.wire_codecs(reddit.topo), model.payload_widths(reddit.topo))]
+    log(f"wire bytes [{card}]: reddit-sim P=4 train step, bytes handed to "
+        f"the exchange {json.dumps(got)} (BENCH_8.json meta.wire_bytes: "
+        f"{json.dumps({w: v['bytes'] for w, v in want.items()})}; equal); "
+        f"auto --slice-boundary plan {plan}")
+    return got
+
+
+def _replay(inner, wires):
+    """A backend around `inner` that hands the exchange the tensors
+    `wires` (another run's sends, in order) in place of its own, cast to
+    the dtype of its own."""
+    from repro_torch.core.trace_utils import RecordingBackend
+
+    class Replay(RecordingBackend):
+        def exchange(self, s):
+            w = wires.pop(0)
+            assert w.shape == s.shape, (w.shape, s.shape)
+            return super().exchange(w.to(s.dtype))
+
+    return Replay(inner)
+
+
+def _wire_step_check(reddit, wire, card):
+    """2 reddit-sim train steps (blocksparse/auto, f32, dropout 0) under
+    `wire` against the COO engine in float64 under the same wire, per
+    leaf in relative norm, two ways. Free-running, each run encodes its
+    own payloads: a payload element within rounding of an int8 level
+    boundary lands on the neighbouring level in one of them, a jump of
+    amax/127 that f32 rounding alone does not make; that reading is
+    printed, with the count of bytes that differ between the two runs'
+    layer-0 and layer-1 forward wires. Fed the same wire bytes (the
+    float64 run receives, at each exchange, what the kernel run sent),
+    the float64 run bounds the kernel path's own error, held at
+    STEP_REL as in phase steps."""
+    import dataclasses
+    import torch
+    from repro_torch.core import PipeConfig, PipeGCN
+    from repro_torch.core.pipegcn import SimBackend
+    pipe = dataclasses.replace(PipeConfig.named("pipegcn"), wire=wire)
+    mc, _ = _model_config(reddit, "blocksparse", "auto")
+    mc = dataclasses.replace(mc, dropout=0.0)
+    kernels = PipeGCN(mc, pipe)
+    coo = PipeGCN(dataclasses.replace(mc, agg="coo"), pipe)
+    params0 = coo.init_params(torch.Generator(device="cuda").manual_seed(0))
+    f64 = (reddit.topo.to(torch.float64), _float64(reddit.train_data))
+    runs = {"kernels": (kernels, reddit.topo, reddit.train_data),
+            "coo-f64": (coo,) + f64, "coo-f64 same wire": (coo,) + f64}
+    state = {r: ({k: v.to(data.x.dtype) for k, v in params0.items()},
+                 m.init_buffers(topo, dtype=data.x.dtype))
+             for r, (m, topo, data) in runs.items()}
+    widths = [c.wire_width(f) for c, f in zip(
+        kernels.wire_codecs(reddit.topo), kernels.payload_widths(reddit.topo))]
+    diffs = {"coo-f64": [], "coo-f64 same wire": []}
+    differing = []
+    for t in range(2):
+        out, sent = {}, {}
+        for r, (m, topo, data) in runs.items():
+            backend = (_replay(SimBackend(), list(sent["kernels"]))
+                       if r == "coo-f64 same wire" else _capture(SimBackend()))
+            params, bufs = state[r]
+            loss, grads, bufs, _ = m.train_step(topo, params, bufs, data,
+                                                backend=backend)
+            out[r] = (loss, grads, bufs)
+            sent[r] = getattr(backend, "sent", None)
+            state[r] = ({k: params[k] - 0.01 * grads[k] for k in params},
+                        bufs)
+        names = (["loss"] + [f"grad {k}" for k in grads]
+                 + [f"{kind}[{ell}]" for kind in ("feat", "grad")
+                    for ell in range(len(bufs[kind]))])
+        for ref in diffs:
+            # no assertion yet: the readings and the wire bytes print first
+            step = _leaf_diffs(out["kernels"], out[ref],
+                               f"reddit-sim wire {wire} step {t}", rel=1e30)
+            diffs[ref] += [(d, f"step {t} {n}") for d, n in zip(step, names)]
+        if wire != "f32":
+            # the forward pack is the step's first exchange
+            a, b = sent["kernels"][0], sent["coo-f64"][0]
+            assert a.dtype == b.dtype == torch.uint8 and a.shape == b.shape
+            cuts = [0, widths[0], widths[0] + widths[1]]
+            differing.append([int((a[..., lo:hi] != b[..., lo:hi]).sum())
+                              for lo, hi in zip(cuts, cuts[1:])])
+    row = dict(wire=wire, bar=STEP_REL,
+               loss=float(out["kernels"][0]),
+               loss_coo_f64=float(out["coo-f64"][0]))
+    for ref, ds in diffs.items():
+        worst, leaf = max(ds)
+        row[ref] = dict(worst_leaf_rel=worst, worst_leaf=leaf,
+                        leaves_over_bar=[n for d, n in ds if d > STEP_REL])
+    if wire != "f32":
+        row["differing_wire_bytes_layer0_layer1"] = differing
+        row["layer0_layer1_wire_bytes"] = [
+            reddit.topo.num_parts ** 2 * reddit.topo.slot * w
+            for w in widths[:2]]
+    log(f"wire step [{card}]: " + json.dumps(row))
+    worst = row["coo-f64 same wire"]["worst_leaf_rel"]
+    assert worst <= STEP_REL, (wire, worst, STEP_REL)
+    return row
+
+
+def _wire_split(split_pipes, card):
+    """The split step under the int8 wire, 2 steps at dropout 0 per split
+    graph: bit-equal to the unsplit step, exact launch counts."""
+    for pipeline in split_pipes:
+        name = graph_name(pipeline)
+        unsplit, _ = split_model(pipeline, "blocksparse", "none",
+                                 dropout=0.0, wire="int8")
+        ref = _steps(unsplit, pipeline, 2)
+        model, _ = split_model(pipeline, "blocksparse", "auto", dropout=0.0,
+                               wire="int8")
+        assert model._split_active() is not None, name
+        reset_launches()
+        got = _steps(model, pipeline, 2)
+        launches = read_launches()
+        expect = expected_launches(model, pipeline.topo, 2, 0)
+        assert launches == expect, (name, launches, expect)
+        _bit_equal(got, ref, f"{name} int8 split vs unsplit")
+        log(f"wire split [{card}]: {name} blocksparse/auto int8 split == "
+            f"unsplit bitwise over 2 steps (loss {float(ref[-1][0]):.6f}), "
+            f"launches {launches}")
+
+
+def _wire_train(reddit, grid, runs, card):
+    """5-epoch main paths under the wire codecs, each with exact launch
+    counts and a finite loss, beside the f32 wire's run of phase train."""
+    import dataclasses
+    from repro_torch.core import PipeConfig
+    base = PipeConfig.named("pipegcn")
+    cases = ((reddit, "bf16", False), (reddit, "int8", False),
+             (reddit, "auto", True), (grid, "auto", True))
+    out = {}
+    for pipeline, wire, sliced in cases:
+        what = f" wire {wire}" + (" --slice-boundary" if sliced else "")
+        pipe = dataclasses.replace(base, wire=wire, slice_boundary=sliced)
+        run = train_run(pipeline, "blocksparse", "auto", pipe, what)
+        f32 = runs[graph_name(pipeline), "blocksparse", "auto"]
+        out[graph_name(pipeline), wire, sliced] = run
+        log(f"wire train [{card}]: {graph_name(pipeline)} blocksparse/auto"
+            f"{what}: loss {run['loss']:.4f} val {run['val']:.4f} (f32 "
+            f"wire: loss {f32['loss']:.4f} val {f32['val']:.4f}); launches "
+            f"{run['launches']}; epochs/s {run['epochs_per_sec']:.3f}")
+    return out
+
+
+def _device_launches(step, state) -> tuple[int, float]:
+    """Device kernels and copies (count, busy ms) of one profiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _timed_steps(step, state, 1)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events)
+    return sum(e.count for e in events), busy / 1e3
+
+
+def _wire_step_times(reddit, card):
+    """reddit-sim blocksparse/auto train step (the pipegcn variant, fused
+    exchange) under the f32, bf16 and int8 wires: 2 warm-up steps, then
+    10 steps each in turns (f32, bf16, int8, int8, bf16, f32), medians of
+    20; then one profiled step each for its device launches and busy
+    time: the codec's launches per step are the difference to f32's."""
+    import dataclasses
+    import torch
+    from repro_torch.core import (HealthConfig, PipeConfig, PipeGCN,
+                                  make_train_step)
+    from repro_torch.optim import adam
+    wires = ("f32", "bf16", "int8")
+    state = {}
+    for wire in wires:
+        mc, lr = _model_config(reddit, "blocksparse", "auto")
+        model = PipeGCN(mc, dataclasses.replace(PipeConfig.named("pipegcn"),
+                                                wire=wire))
+        opt = adam(lr)
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        state[wire] = (make_train_step(model, opt, HealthConfig()), [
+            reddit.topo, params, opt.init(params),
+            model.init_buffers(reddit.topo), reddit.train_data,
+            torch.Generator(device="cuda").manual_seed(1)])
+        _timed_steps(*state[wire], 2)
+    times = {w: [] for w in wires}
+    for wire in wires + wires[::-1]:
+        times[wire] += _timed_steps(*state[wire], 10)
+    prof = {w: _device_launches(*state[w]) for w in wires}
+    out = {}
+    for wire, ts in times.items():
+        q = sorted(ts)
+        out[wire] = dict(median=(q[9] + q[10]) / 2, q1=q[4], q3=q[14],
+                         max=q[-1], device_launches=prof[wire][0],
+                         codec_launches=prof[wire][0] - prof["f32"][0],
+                         device_busy_ms=prof[wire][1],
+                         codec_busy_ms=prof[wire][1] - prof["f32"][1])
+    log(f"wire step times [{card}]: reddit-sim P=4 blocksparse/auto train "
+        f"step ms (20 steps each, in turns): {json.dumps(out)}")
+    return out
+
+
+def phase_wire(reddit, yelp, split_pipes, runs):
+    """The boundary wire codecs and feature slicing on the card: encoders
+    (card == CPU), exact bytes per step, the int8 step against float64,
+    the split under int8, 5-epoch runs with exact launches, step times."""
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    out = dict(encoders=_wire_encoders(reddit, card)
+               + _wire_encoders(yelp, card),
+               bytes=_wire_bytes(reddit, card),
+               steps=[_wire_step_check(reddit, w, card)
+                      for w in ("f32", "int8")])
+    _wire_split(split_pipes, card)
+    out["train"] = _wire_train(reddit, split_pipes[1], runs, card)
+    out["step_times"] = _wire_step_times(reddit, card)
+    log(f"wire: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_exchange(split_pipes, runs):
     """The boundary exchange of the split step on the sim backend (the
     counterpart of the TPU's start_boundary_rdma): the packed forward
@@ -1780,6 +2133,7 @@ def main(argv) -> int:
     runs = phase_train(reddit, yelp, split_pipes)
     phase_step_times(reddit, yelp)
     phase_split_step_times(split_pipes)
+    phase_wire(reddit, yelp, split_pipes, runs)
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

@@ -101,6 +101,48 @@ def _nnz_per_layer(nnz_eff, num_layers: int) -> list[float]:
     return [float(nnz_eff)] * num_layers
 
 
+# -- boundary wire pricing (quantized + sliced traffic) ----------------
+
+#: Bytes one boundary-payload row of width f occupies under each wire
+#: format — must match the codec layouts in repro_torch.core.codec (the
+#: int8/int4 figures include the trailing per-block f32 scale region).
+def wire_bytes_per_row(wire: str, f: int, block: int = 128) -> float:
+    """Wire bytes of one f-wide boundary row under `wire` (f32 payload)."""
+    nb = -(-f // block) if f else 0
+    if wire == "f32":
+        return 4.0 * f
+    if wire == "bf16":
+        return 2.0 * f
+    if wire == "int8":
+        return float(f + 4 * nb)
+    if wire == "int4":
+        return float((f + 1) // 2 + 4 * nb)
+    raise ValueError(f"unknown wire format {wire!r}")
+
+
+def choose_wire_formats(widths, candidates=("bf16", "int8"),
+                        block: int = 128) -> tuple[str, ...]:
+    """Per-layer wire format `wire="auto"` resolves to: the candidate with
+    the fewest bytes for each payload width, earliest-listed winning ties.
+
+    The default candidate set deliberately leads with bf16 (byte ties
+    prefer fidelity) and excludes int4 — its accuracy cost is large enough
+    that shipping nibbles stays an explicit per-run decision."""
+    out = []
+    for f in widths:
+        out.append(min(candidates,
+                       key=lambda w: (wire_bytes_per_row(w, int(f), block),
+                                      candidates.index(w))))
+    return tuple(out)
+
+
+#: Comm-to-compute exchange rate for the order/wire co-decision: FLOPs one
+#: wire byte is worth on the paper-normalized GPU (sustained matmul
+#: throughput / link bandwidth: 13.45e12 * 0.22 flops over 4e9 B/s, the
+#: JAX package's figure, kept so that both packages pick the same orders).
+DEFAULT_FLOPS_PER_WIRE_BYTE = 13.45e12 * 0.22 / 4e9
+
+
 def gcn_order_report(layer_dims, num_rows: int, combined: int,
                      nnz_eff, train: bool = True,
                      fused: bool = False, tile: int = _TILE,

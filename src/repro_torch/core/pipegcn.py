@@ -34,15 +34,19 @@ on a side CUDA stream and the SPMD backend as an asynchronous NCCL
 collective, the paper's second stream either way; the split step equals
 the unsplit one bitwise.
 
-This slice runs the fault-free, identity-wire step: variants vanilla /
-pipegcn / -g / -f / -gf, k-step FIFOs (``staleness_steps``) and the fused
-deferred exchange, with the "coo", "blocksparse" and "fused" engines. The
-options it does not run raise ``NotImplementedError`` when a ``PipeGCN``
-is built, naming the ROADMAP item that ports them.
+The step runs variants vanilla / pipegcn / -g / -f / -gf, k-step FIFOs
+(``staleness_steps``) and the fused deferred exchange, with the "coo",
+"blocksparse" and "fused" engines, every boundary wire codec
+(``PipeConfig.wire``: f32, bf16, int8, int4, auto; ``core/codec.py``)
+and feature slicing (``slice_boundary``: a sliced layer ships its
+post-transform rows). Every exchanged payload is encoded before the
+exchange and decoded after it, in both schedules. The guarded exchange is
+not ported: it raises ``NotImplementedError`` when a ``PipeGCN`` is
+built, naming the ROADMAP item that ports it.
 
-State layout (per layer ℓ; widths follow the layer inputs; n is the
-number of partitions a backend holds: P on the sim backend, n_local on a
-rank):
+State layout (per layer ℓ; widths follow `payload_widths`: the layer input
+width, or the output width of a sliced layer; n is the number of
+partitions a backend holds: P on the sim backend, n_local on a rank):
   feat_buf[ℓ] : (n, P*slot, F_ℓ)   stale boundary features   (Eq. 3 h^(t-1))
   grad_buf[ℓ] : (n, max_inner, F_ℓ) stale boundary-gradient contributions,
                 already exchanged and scattered to owner rows (Eq. 4 δ^(t-1))
@@ -57,6 +61,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.codec import (fused_exchange_encoded, make_codec,
+                                    start_fused_exchange_encoded)
 from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.device import exact_f32_matmul, resolve_device
 from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
@@ -574,18 +580,10 @@ class PipeGCN:
 
     def __post_init__(self):
         get_engine(self.model.agg)      # unknown or unported engines raise
-        unported = []
-        if self.pipe.wire != "f32":
-            unported.append(f"wire={self.pipe.wire!r} (ROADMAP Queue 1 "
-                            "item 8: boundary codecs)")
-        if self.pipe.slice_boundary:
-            unported.append("slice_boundary (ROADMAP Queue 1 item 8)")
         if self.pipe.guard_exchange:
-            unported.append("guard_exchange (ROADMAP Queue 1 item 9: "
-                            "fault tolerance)")
-        if unported:
             raise NotImplementedError(
-                "not ported to repro_torch yet: " + "; ".join(unported))
+                "not ported to repro_torch yet: guard_exchange (ROADMAP "
+                "Queue 1 item 9: fault tolerance)")
 
     # ---------------- parameters & state ----------------
 
@@ -660,8 +658,10 @@ class PipeGCN:
         in the JAX package: "none" and a missing spec mean unsplit;
         "split-phase" splits for every engine; "auto" splits only for the
         engines that consume tile streams (for COO the split is pure
-        masking overhead). Feature slicing and the guarded exchange
-        disable the split (neither is ported yet)."""
+        masking overhead). Feature slicing disables the split (the sliced
+        send exists only after the dense transform, so there is no
+        boundary-first phase to overlap), and so would the guarded
+        exchange (not ported yet)."""
         if (self.pipe.overlap == "none" or self.split is None
                 or self.pipe.slice_boundary or self.pipe.guard_exchange):
             return None
@@ -669,20 +669,58 @@ class PipeGCN:
             return self.split
         return self.split if self.engine.name in TILE_ENGINES else None
 
-    def payload_widths(self, topo: Topology) -> tuple[int, ...]:
-        """Per-layer feature width of the boundary exchange payload (the
-        layer input width fin; sliced layers are not ported)."""
-        return tuple(fin for fin, _ in self.model.layer_dims())
+    def sliced_layers(self, topo: Topology) -> frozenset:
+        """Layers whose boundary exchange ships the post-transform width.
 
-    def layer_orders(self, topo: Topology, train: bool = True,
+        Empty unless `PipeConfig.slice_boundary`. A layer is sliced when
+        the train-mode base ordering picks transform-first for it and
+        fout <= fin (slicing a widening layer would grow the wire). Layer 0
+        never slices: its payload is the raw input features. Computed from
+        `_base_orders(train=True)` only, so the sliced set — and with it
+        every buffer width — is the same for train and eval steps."""
+        if not self.pipe.slice_boundary:
+            return frozenset()
+        dims = self.model.layer_dims()
+        orders = self._base_orders(topo, train=True)
+        return frozenset(
+            ell for ell in range(1, self.model.num_layers)
+            if orders[ell] == "transform-first"
+            and dims[ell][1] <= dims[ell][0])
+
+    def payload_widths(self, topo: Topology) -> tuple[int, ...]:
+        """Per-layer feature width of the boundary exchange payload: fin,
+        or fout for sliced layers. Stale buffers, wire-format resolution
+        and the byte accounting all key off this table."""
+        dims = self.model.layer_dims()
+        sl = self.sliced_layers(topo)
+        return tuple(dims[ell][1] if ell in sl else dims[ell][0]
+                     for ell in range(self.model.num_layers))
+
+    def wire_codecs(self, topo: Topology) -> tuple:
+        """Per-layer boundary codec (`repro_torch.core.codec`) the step
+        encodes with. A concrete `PipeConfig.wire` applies to every layer;
+        "auto" picks per layer by wire bytes over the payload widths
+        (`analysis.cost.choose_wire_formats`; int4 is explicit-only)."""
+        L = self.model.num_layers
+        if self.pipe.wire != "auto":
+            return (make_codec(self.pipe.wire, self.pipe.wire_block),) * L
+        from repro_torch.analysis.cost import choose_wire_formats
+        fmts = choose_wire_formats(self.payload_widths(topo),
+                                   block=self.pipe.wire_block)
+        return tuple(make_codec(f, self.pipe.wire_block) for f in fmts)
+
+    def _base_orders(self, topo: Topology, train: bool = True,
                      fused: bool | None = None) -> tuple[str, ...]:
         """Per-layer matmul ordering: forced, or "auto" through the static
         FLOP model fed the shard's effective sparse work (n_tiles·T² for
         the tile engines, the padded COO length otherwise), as the JAX
-        package's `_base_orders` (there are no sliced layers here).
-        `fused` overrides whether the fused kernels are priced (default:
-        the engine is "fused"); the split-phase step runs the fused engine
-        through the composed phased path and passes fused=False."""
+        package's `_base_orders`. `fused` overrides whether the fused
+        kernels are priced (default: the engine is "fused"); the
+        split-phase step runs the fused engine through the composed phased
+        path and passes fused=False. Under `slice_boundary` each order is
+        also charged the wire bytes it ships (transform-first ships the
+        sliced fout width), with formats resolved on the unsliced widths:
+        the sliced set is itself derived from this choice."""
         mo = self.model.matmul_order
         L = self.model.num_layers
         if mo != "auto":
@@ -694,10 +732,39 @@ class PipeGCN:
             nnz_eff = [topo.edge_row.shape[-1]] * L
         if fused is None:
             fused = self.engine.name == "fused"
-        from repro_torch.analysis.cost import choose_gcn_orders
+        from repro_torch.analysis.cost import (DEFAULT_FLOPS_PER_WIRE_BYTE,
+                                               choose_gcn_orders,
+                                               choose_wire_formats,
+                                               wire_bytes_per_row)
+        kw = {}
+        if self.pipe.slice_boundary:
+            block = self.pipe.wire_block
+            if self.pipe.wire == "auto":
+                fmts = choose_wire_formats(
+                    [f for f, _ in self.model.layer_dims()], block=block)
+            else:
+                fmts = (self.pipe.wire,) * L
+            kw = dict(
+                slot_rows=float(topo.halo_size),
+                wire_bytes_fn=lambda ell, f: wire_bytes_per_row(
+                    fmts[ell], f, block),
+                slice_boundary=True,
+                comm_flops_per_byte=DEFAULT_FLOPS_PER_WIRE_BYTE)
         return choose_gcn_orders(self.model.layer_dims(), topo.max_inner,
                                  combined, nnz_eff, train=train,
-                                 fused=fused, tile=TILE)
+                                 fused=fused, tile=TILE, **kw)
+
+    def layer_orders(self, topo: Topology, train: bool = True,
+                     fused: bool | None = None) -> tuple[str, ...]:
+        """Per-layer matmul ordering the step runs with: `_base_orders`,
+        with every sliced layer forced to transform-first in every mode
+        (its exchange and stale buffers carry the post-transform width, so
+        the order behind them must not drift between train and eval or
+        across `fused` overrides)."""
+        orders = self._base_orders(topo, train=train, fused=fused)
+        sl = self.sliced_layers(topo)
+        return tuple("transform-first" if ell in sl else o
+                     for ell, o in enumerate(orders))
 
     def step_orders(self, topo: Topology, train: bool = True):
         """The orders the step runs with: `layer_orders`, priced unfused
@@ -803,59 +870,95 @@ class PipeGCN:
         max_inner = topo.max_inner
         combined = max_inner + topo.halo_size
         n = topo.send_idx.shape[0]
+        sage = self.model.kind == "sage"
 
         tslice = self._agg_slice(topo)
         send_idx, send_mask = topo.send_idx, topo.send_mask
         fuse = pipe.fused        # stale + fuse_exchange: deferred exchanges
         orders = self.layer_orders(topo, train=train)
+        sliced = self.sliced_layers(topo)
+        codecs = self.wire_codecs(topo)
         pw = self.payload_widths(topo)
         dropout_rate = self.model.dropout if train else 0.0
 
         h = data.x
         residuals = []
         new_feat = [None] * L
-        pending_feat = []        # fused mode: per-layer sends, exchanged once
+        pending_feat = []        # fused mode: per-layer wires, exchanged once
+        feat_dtypes = []         # ... and their pre-encode dtypes
 
-        def land(recv, ell):
-            """(n, P, slot, pw) received payload -> (n, P·slot, pw) halo."""
-            return recv.reshape(n, P * topo.slot, pw[ell])
+        def land(ell, recv, dtype):
+            """Decode one received (n, P, slot, ·) feature wire to the
+            (n, P·slot, pw) halo layout in the payload's `dtype`."""
+            fresh = codecs[ell].decode(recv, pw[ell], dtype)
+            return fresh.reshape(n, P * topo.slot, pw[ell])
+
+        def ship_feat(ell, payload):
+            """Encode one layer's (n, P, slot, pw) feature send, exchange it
+            (or queue it for the fused exchange), decode, and return the
+            halo the layer consumes this step."""
+            wire = codecs[ell].encode(payload)
+            if fuse:
+                # Stale mode: the exchange result is consumed only at t+1,
+                # so defer the wire into the packed exchange and read this
+                # step's halo straight from the pipeline state.
+                pending_feat.append(wire)
+                feat_dtypes.append(payload.dtype)
+                return self._consume_buffer(buffers["feat"][ell])
+            fresh = land(ell, backend.exchange(wire), payload.dtype)
+            if pipe.stale:
+                new_feat[ell] = self._update_buffer(
+                    buffers["feat"][ell], fresh, pipe.smooth_feat)
+                return self._consume_buffer(buffers["feat"][ell])
+            new_feat[ell] = buffers["feat"][ell]
+            return fresh
 
         for ell in range(L):
             fin, _ = dims[ell]
+            w, b = params[f"w{ell}"], params[f"b{ell}"]
             dm = None
             if dropout_rate > 0.0:
                 dm = backend.dropout_mask(generator, dropout_rate,
                                           (n, combined, fin))
             act = ell < L - 1
             fuse_relu = act and not train
-            payload = _gather_send(h, send_idx, send_mask)
-            if fuse:
-                # Stale mode: the exchange result is consumed only at t+1,
-                # so defer the send into the packed exchange and read this
-                # step's halo straight from the pipeline state.
-                pending_feat.append(payload)
-                halo = self._consume_buffer(buffers["feat"][ell])
+            if ell in sliced:
+                # Sliced boundary (order forced transform-first): transform
+                # the inner rows first and ship the fout-wide rows; the
+                # consumer aggregates already-transformed halo rows. Dropout
+                # applies owner-side before the transform (a halo row
+                # carries its owner's inner-row mask), which equals the
+                # unsliced schedule at dropout 0.
+                w1 = w[:fin] if sage else w
+                h_in = h * dm[:, :max_inner] if dm is not None else h
+                hw = h_in @ w1
+                halo = ship_feat(ell, _gather_send(hw, send_idx, send_mask))
+                u = self.engine.spmm(tslice, torch.cat([hw, halo], dim=1),
+                                     max_inner) + b
+                if sage:
+                    u = u + h_in @ w[fin:]
+                if fuse_relu:
+                    u = torch.relu(u)
+                # residual slot 0 holds the masked inner rows: the sliced
+                # backward needs h_in, never the full comb
+                residuals.append((h_in, None, u, dm))
             else:
-                fresh = land(backend.exchange(payload), ell)
-                if pipe.stale:
-                    halo = self._consume_buffer(buffers["feat"][ell])
-                    new_feat[ell] = self._update_buffer(
-                        buffers["feat"][ell], fresh, pipe.smooth_feat)
-                else:
-                    halo = fresh
-                    new_feat[ell] = buffers["feat"][ell]
-            u, (comb, z) = self._layer_forward(
-                tslice, params[f"w{ell}"], params[f"b{ell}"], h, halo, dm,
-                order=orders[ell], fuse_relu=fuse_relu, with_z=train)
-            residuals.append((comb, z, u, dm))
+                halo = ship_feat(ell, _gather_send(h, send_idx, send_mask))
+                u, (comb, z) = self._layer_forward(
+                    tslice, w, b, h, halo, dm, order=orders[ell],
+                    fuse_relu=fuse_relu, with_z=train)
+                residuals.append((comb, z, u, dm))
             h = torch.relu(u) if act and not fuse_relu else u
 
         if fuse:
             # ONE exchange for all L layers' boundary features; the results
-            # land in the t+1 buffers.
-            for ell, recv in enumerate(backend.fused_exchange(pending_feat)):
+            # land in the t+1 buffers. Decoding restores each layer's own
+            # pre-pack dtype.
+            recvs = fused_exchange_encoded(backend, pending_feat)
+            for ell, recv in enumerate(recvs):
                 new_feat[ell] = self._update_buffer(
-                    buffers["feat"][ell], land(recv, ell), pipe.smooth_feat)
+                    buffers["feat"][ell], land(ell, recv, feat_dtypes[ell]),
+                    pipe.smooth_feat)
 
         logits = h
         loss, dlogits = self._loss(backend, logits, data)
@@ -865,48 +968,81 @@ class PipeGCN:
         # -- manual backward (Alg. 1 lines 17–30) --------------------------
         grads = {}
         new_grad = [None] * L
-        pending_grad = []        # fused mode: (ell, send), exchanged once
+        pending_grad = []        # fused mode: (ell, wire, dtype), one exchange
 
-        def ship_grad(ell, db):
-            """Exchange one layer's (n, P, slot, fin) gradient send (or queue
-            it for the fused exchange) and return the owner-row contribution
-            the backward consumes this step (stale buffer when pipelined)."""
+        def land_grad(ell, recv, dtype):
+            """Decode one received gradient wire and scatter it to owner
+            rows."""
+            return _scatter_recv(codecs[ell].decode(recv, pw[ell], dtype),
+                                 send_idx, send_mask, max_inner)
+
+        def ship_grad(ell, db, compute_dtype):
+            """Encode one layer's (n, P, slot, pw) gradient send, exchange
+            it (or queue it for the fused exchange), and return the
+            owner-row contribution the backward consumes this step (stale
+            buffer when pipelined). The decode dtype is the payload's own
+            under the identity codec, the compute dtype after a lossy
+            wire."""
+            dtype = db.dtype if codecs[ell].name == "f32" else compute_dtype
+            wire = codecs[ell].encode(db)
             if fuse:
-                pending_grad.append((ell, db))
+                pending_grad.append((ell, wire, dtype))
                 return self._consume_buffer(buffers["grad"][ell])
-            fresh = _scatter_recv(backend.exchange(db), send_idx, send_mask,
-                                  max_inner)
+            fresh = land_grad(ell, backend.exchange(wire), dtype)
             if pipe.stale:
-                contrib = self._consume_buffer(buffers["grad"][ell])
                 new_grad[ell] = self._update_buffer(
                     buffers["grad"][ell], fresh, pipe.smooth_grad)
-                return contrib
+                return self._consume_buffer(buffers["grad"][ell])
             new_grad[ell] = buffers["grad"][ell]
             return fresh
 
         j = dlogits
         for ell in reversed(range(L)):
             comb, z, u, dm = residuals[ell]
+            fin, fout = dims[ell]
+            w = params[f"w{ell}"]
             du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
             grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
+            if ell in sliced:
+                # Sliced backward (transform-first, fout-wide exchange): ship
+                # the pre-w1 halo rows of dhw = Pᵀ·du to their owners and
+                # fold the owner contributions into the inner rows before
+                # the weight gradient and w1ᵀ; the scatter commutes with
+                # both, so vanilla mode equals the unsliced step.
+                w1 = w[:fin] if sage else w
+                h_in = comb      # residual slot 0: the masked inner rows
+                dhw = self.engine.spmm_t(tslice, du, combined)
+                db = dhw[:, max_inner:].reshape(n, P, topo.slot, fout)
+                dhw_eff = dhw[:, :max_inner] + ship_grad(ell, db, j.dtype)
+                gw = h_in.transpose(1, 2) @ dhw_eff
+                if sage:
+                    gw = torch.cat([gw, h_in.transpose(1, 2) @ du], dim=1)
+                grads[f"w{ell}"] = backend.psum(gw)
+                j = dhw_eff @ w1.T
+                if sage:
+                    j = j + du @ w[fin:].T
+                if dm is not None:
+                    j = j * dm[:, :max_inner]
+                continue
             need_dcomb = ell > 0    # Alg. 1 stops the backward at layer 0
             gw, dh_local, db = self._layer_backward(
-                tslice, params[f"w{ell}"], du, comb, z, dm, max_inner,
+                tslice, w, du, comb, z, dm, max_inner,
                 order=orders[ell], need_dcomb=need_dcomb)
             grads[f"w{ell}"] = backend.psum(gw)
             if ell == 0:
                 new_grad[0] = buffers["grad"][0]
                 break
-            db = db.reshape(n, P, topo.slot, dims[ell][0])
-            j = dh_local + ship_grad(ell, db)
+            db = db.reshape(n, P, topo.slot, fin)
+            j = dh_local + ship_grad(ell, db, j.dtype)
 
         if fuse and pending_grad:
             # ONE exchange for all L-1 boundary-gradient sends.
-            recvs = backend.fused_exchange([d for _, d in pending_grad])
-            for (ell, _), recv in zip(pending_grad, recvs):
-                fresh = _scatter_recv(recv, send_idx, send_mask, max_inner)
+            recvs = fused_exchange_encoded(backend,
+                                           [w_ for _, w_, _ in pending_grad])
+            for (ell, _, dtype), recv in zip(pending_grad, recvs):
                 new_grad[ell] = self._update_buffer(
-                    buffers["grad"][ell], fresh, pipe.smooth_grad)
+                    buffers["grad"][ell], land_grad(ell, recv, dtype),
+                    pipe.smooth_grad)
 
         return loss, logits, grads, {"feat": tuple(new_feat),
                                      "grad": tuple(new_grad)}
@@ -952,6 +1088,10 @@ class PipeGCN:
         send_idx, send_mask = topo.send_idx, topo.send_mask
         fuse = pipe.fused
         orders = self.layer_orders(topo, train=train, fused=False)
+        # slicing never reaches the split (`_split_active`), but every wire
+        # codec does: the split moves the exchange, the codec changes what
+        # it carries
+        codecs = self.wire_codecs(topo)
         pw = self.payload_widths(topo)
         dropout_rate = self.model.dropout if train else 0.0
 
@@ -963,17 +1103,26 @@ class PipeGCN:
             backend.note(("spmm_t_phased", phase))
             return engine.spmm_t_phased(tslice, src, combined, sp, phase)
 
-        def land(recv, ell):
-            return recv.reshape(n, P * topo.slot, pw[ell])
+        def land(ell, recv, dtype):
+            fresh = codecs[ell].decode(recv, pw[ell], dtype)
+            return fresh.reshape(n, P * topo.slot, pw[ell])
 
         residuals = []
         new_feat = [None] * L
         pending_feat = []
+        feat_dtypes = []
 
-        def finish_feat(ell, handle):
+        def start_feat(ell, payload):
+            """Start the exchange of layer ell's encoded payload; returns
+            (handle, the payload's dtype)."""
+            return (backend.start_exchange(codecs[ell].encode(payload)),
+                    payload.dtype)
+
+        def finish_feat(ell, started):
             """Wait for layer ell's exchange; returns the halo it consumes
             (the fresh payload in vanilla mode, the stale state else)."""
-            fresh = land(handle.wait(), ell)
+            handle, dtype = started
+            fresh = land(ell, handle.wait(), dtype)
             if pipe.stale:
                 new_feat[ell] = self._update_buffer(
                     buffers["feat"][ell], fresh, pipe.smooth_feat)
@@ -984,9 +1133,11 @@ class PipeGCN:
         def defer_feat(ell, payload):
             """Fused schedule: queue the payload, start the packed exchange
             once the last one is in; returns the stale halo."""
-            pending_feat.append(payload)
+            pending_feat.append(codecs[ell].encode(payload))
+            feat_dtypes.append(payload.dtype)
             if ell == L - 1:
-                flight["feat"] = backend.start_fused_exchange(pending_feat)
+                flight["feat"] = start_fused_exchange_encoded(backend,
+                                                              pending_feat)
             return self._consume_buffer(buffers["feat"][ell])
 
         flight = {}
@@ -996,7 +1147,7 @@ class PipeGCN:
         if fuse:
             halo = defer_feat(0, payload)
         else:
-            halo = finish_feat(0, backend.start_exchange(payload))
+            halo = finish_feat(0, start_feat(0, payload))
 
         for ell in range(L):
             fin, _ = dims[ell]
@@ -1029,7 +1180,7 @@ class PipeGCN:
                 if fuse:
                     halo = defer_feat(ell + 1, payload)
                 else:
-                    inflight = backend.start_exchange(payload)
+                    inflight = start_feat(ell + 1, payload)
 
             # interior phase, while the exchange is in flight
             raw_i = spmm_phase(src, "interior")
@@ -1051,7 +1202,8 @@ class PipeGCN:
         if fuse:
             for ell, recv in enumerate(flight.pop("feat").wait()):
                 new_feat[ell] = self._update_buffer(
-                    buffers["feat"][ell], land(recv, ell), pipe.smooth_feat)
+                    buffers["feat"][ell], land(ell, recv, feat_dtypes[ell]),
+                    pipe.smooth_feat)
 
         logits = h
         loss, dlogits = self._loss(backend, logits, data)
@@ -1065,7 +1217,11 @@ class PipeGCN:
         # transpose phases (fused: at the last backward layer, ell == 1).
         grads = {}
         new_grad = [None] * L
-        pending_grad = []
+        pending_grad = []        # fused mode: (ell, wire, dtype)
+
+        def land_grad(ell, recv, dtype):
+            return _scatter_recv(codecs[ell].decode(recv, pw[ell], dtype),
+                                 send_idx, send_mask, max_inner)
 
         j = dlogits
         for ell in reversed(range(L)):
@@ -1104,17 +1260,21 @@ class PipeGCN:
             if dm is not None:
                 d_bt = d_bt * dm[:, ct:]
 
-            # the gradient send is the halo rows of the boundary phase
+            # the gradient send is the halo rows of the boundary phase,
+            # decoded in the payload's dtype under the identity codec and
+            # in the compute dtype after a lossy wire
             db = d_bt[:, max_inner - ct:].reshape(n, P, topo.slot, fin)
+            db_dtype = db.dtype if codecs[ell].name == "f32" else j.dtype
+            wire = codecs[ell].encode(db)
             inflight = None
             if fuse:
-                pending_grad.append((ell, db))
+                pending_grad.append((ell, wire, db_dtype))
                 contrib = self._consume_buffer(buffers["grad"][ell])
                 if ell == 1:
-                    flight["grad"] = backend.start_fused_exchange(
-                        [d for _, d in pending_grad])
+                    flight["grad"] = start_fused_exchange_encoded(
+                        backend, [w_ for _, w_, _ in pending_grad])
             else:
-                inflight = backend.start_exchange(db)
+                inflight = backend.start_exchange(wire)
 
             # interior phase, while the exchange is in flight
             raw_ti = spmm_t_phase(src_t, "interior")
@@ -1134,8 +1294,7 @@ class PipeGCN:
                 d_ih = d_ih * dm[:, :ct]
             grads[f"w{ell}"] = backend.psum(gw)
             if inflight is not None:
-                fresh = _scatter_recv(inflight.wait(), send_idx, send_mask,
-                                      max_inner)
+                fresh = land_grad(ell, inflight.wait(), db_dtype)
                 if pipe.stale:
                     contrib = self._consume_buffer(buffers["grad"][ell])
                     new_grad[ell] = self._update_buffer(
@@ -1147,10 +1306,10 @@ class PipeGCN:
 
         if fuse and pending_grad:
             recvs = flight.pop("grad").wait()
-            for (ell, _), recv in zip(pending_grad, recvs):
-                fresh = _scatter_recv(recv, send_idx, send_mask, max_inner)
+            for (ell, _, dtype), recv in zip(pending_grad, recvs):
                 new_grad[ell] = self._update_buffer(
-                    buffers["grad"][ell], fresh, pipe.smooth_grad)
+                    buffers["grad"][ell], land_grad(ell, recv, dtype),
+                    pipe.smooth_grad)
 
         return loss, logits, grads, {"feat": tuple(new_feat),
                                      "grad": tuple(new_grad)}

@@ -15,6 +15,12 @@ as they happen instead:
 The fused deferred exchange issues 2 exchanges per training step (one
 packed exchange per direction), the per-layer schedule 2L-1; the split
 schedule keeps the count and only moves each exchange between the phases.
+
+The backend wrapper also counts the bytes it hands the exchange
+(`RecordingBackend.wire_bytes`): the port's counterpart of the JAX
+package's ``traced_wire_bytes``, which sums the operand bytes of every
+all_to_all in the traced step. `step_wire_bytes` gives that figure for one
+training step.
 """
 from __future__ import annotations
 
@@ -34,11 +40,14 @@ class _RecordedWait:
 
 class RecordingBackend(_ExchangeBase):
     """Wraps a backend and records the step's schedule events in
-    `events`; every sync point is forwarded to `inner` unchanged."""
+    `events`, and in `wire_bytes` the bytes (numel × element size) of
+    every tensor it forwards to an exchange; every sync point is forwarded
+    to `inner` unchanged."""
 
     def __init__(self, inner):
         self.inner = inner
         self.events: list = []
+        self.wire_bytes = 0
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
@@ -48,11 +57,30 @@ class RecordingBackend(_ExchangeBase):
 
     def exchange(self, s):
         self.events.append("exchange")
+        self.wire_bytes += s.numel() * s.element_size()
         return self.inner.exchange(s)
 
     def start_exchange(self, s):
         self.events.append("exchange_start")
+        self.wire_bytes += s.numel() * s.element_size()
         return _RecordedWait(self.inner.start_exchange(s), self.events)
+
+
+def step_wire_bytes(model, topo, data, train: bool = True) -> int:
+    """Bytes one training (or eval) step of `model` hands the exchange, on
+    a recording sim backend from the seed-0 parameters and zero buffers:
+    every partition's sends, the figure the JAX package's
+    ``traced_step_wire_bytes`` gives on a mesh of one device holding all
+    partitions. It depends only on shapes and the wire codecs."""
+    import torch
+    from repro_torch.core.pipegcn import SimBackend
+    rec = RecordingBackend(SimBackend())
+    gen = torch.Generator(device=data.x.device).manual_seed(0)
+    params = model.init_params(gen, dtype=data.x.dtype)
+    buffers = model.init_buffers(topo, dtype=data.x.dtype)
+    with torch.no_grad():
+        model._step_impl(rec, topo, params, buffers, data, gen, train=train)
+    return rec.wire_bytes
 
 
 def count_exchanges(events) -> int:

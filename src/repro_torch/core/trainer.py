@@ -155,6 +155,7 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
         else:
             why = ("disabled" if pipe_cfg.overlap == "none" else
                    "no feasible split" if split is None else
+                   "feature slicing" if pipe_cfg.slice_boundary else
                    f"engine {model_cfg.agg!r} has no tile phases")
             log(f"overlap schedule: unsplit ({why})")
         # under the split the fused epilogue is bypassed: log the orders
@@ -166,6 +167,14 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
         eval_model = dataclasses.replace(model, pipe=PipeConfig.vanilla())
         log(_orders_line("eval matmul order", how, model_cfg.agg,
                          eval_model.step_orders(topo, train=False)))
+        if pipe_cfg.wire != "f32" or pipe_cfg.slice_boundary:
+            codecs = model.wire_codecs(topo)
+            widths = model.payload_widths(topo)
+            sl = model.sliced_layers(topo)
+            log("boundary wire: " + " ".join(
+                f"L{i}:{c.name}x{w}{'s' if i in sl else ''}"
+                for i, (c, w) in enumerate(zip(codecs, widths)))
+                + (" (s = sliced to the post-transform width)" if sl else ""))
         if topo.tile_rows is not None:
             from repro_torch.analysis.cost import graph_layout_report
             rep = graph_layout_report(pipeline.pg)

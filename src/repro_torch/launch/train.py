@@ -38,8 +38,6 @@ from repro_torch.graph.synthetic import model_template
 # the ROADMAP Queue 1 item that ports them. Each is refused when given away
 # from its default.
 UNPORTED = {
-    8: ("boundary codecs and feature slicing",
-        ("wire", "slice_boundary")),
     9: ("fault tolerance",
         ("guard_exchange", "max_staleness", "fault_rate", "fault_kind",
          "fault_seed", "ckpt_dir", "ckpt_every", "ckpt_keep", "resume")),
@@ -130,7 +128,8 @@ def _run_gcn(args, log) -> dict:
                      layout=pipeline.layout)
     pc = dataclasses.replace(PipeConfig.named(args.variant, gamma=args.gamma),
                              fuse_exchange=not args.no_fuse_exchange,
-                             overlap=args.overlap)
+                             overlap=args.overlap, wire=args.wire,
+                             slice_boundary=args.slice_boundary)
     health = HealthConfig(enabled=False) if args.no_health else None
     res = train_pipegcn(pipeline, mc, pc, epochs=args.epochs,
                         lr=args.lr or tpl["lr"], seed=args.seed,
@@ -143,6 +142,7 @@ def _run_gcn(args, log) -> dict:
            "device": args.device, "agg": args.agg,
            "matmul_order": args.matmul_order, "layout": pipeline.layout,
            "fuse_exchange": pc.fuse_exchange, "overlap": pc.overlap,
+           "wire": pc.wire, "slice_boundary": pc.slice_boundary,
            "spmd": args.spmd, "parts_per_device": args.parts_per_device,
            "anomalies": res.anomalies, "final": res.final_metrics,
            "epochs_per_sec": res.epochs_per_sec, "history": res.history}
@@ -198,12 +198,20 @@ def parser() -> argparse.ArgumentParser:
                     choices=["auto", "none", "split-phase"],
                     help="split-phase overlap schedule: auto = split where "
                          "feasible for the tile engines")
+    ap.add_argument("--wire", default="f32",
+                    choices=["f32", "bf16", "int8", "int4", "auto"],
+                    help="boundary wire format (docs/wire-format.md): f32 "
+                         "ships the payload as is, bf16 halves it, int8 / "
+                         "int4 quantize it blockwise with f32 scales in the "
+                         "payload; auto picks bf16 or int8 per layer by "
+                         "wire bytes")
+    ap.add_argument("--slice-boundary", action="store_true",
+                    help="layers that run transform-first with F_out <= "
+                         "F_in ship the post-transform rows (incompatible "
+                         "with --overlap split-phase)")
     # Flags of the JAX launcher whose features are not ported yet (UNPORTED):
     # accepted with the JAX names, types and defaults so that a JAX command
     # line parses, then refused by unported_flags.
-    ap.add_argument("--wire", default="f32",
-                    choices=["f32", "bf16", "int8", "int4", "auto"])
-    ap.add_argument("--slice-boundary", action="store_true")
     ap.add_argument("--guard-exchange", action="store_true")
     ap.add_argument("--max-staleness", type=int, default=8)
     ap.add_argument("--fault-rate", type=float, default=0.0)

@@ -116,8 +116,8 @@ def _close_to_jax(jtree, ttree, what):
 
 
 # kind, variant, agg, matmul order, pipe knobs, dropout: the JAX package's
-# matrix (tests/test_overlap.py) without its compress_boundary cell (the
-# bf16 wire is not ported: ROADMAP Queue 1 item 8), plus fused/auto
+# matrix (tests/test_overlap.py), plus fused/auto and the int8 and auto
+# wires (the split moves each encoded exchange, and must stay bitwise)
 CELLS = [
     ("sage", "pipegcn", "coo", "aggregate-first", {}, 0.0),
     ("sage", "pipegcn", "blocksparse", "aggregate-first", {}, 0.0),
@@ -134,6 +134,11 @@ CELLS = [
     ("sage", "pipegcn", "fused", "aggregate-first",
      {"staleness_steps": 2}, 0.0),
     ("sage", "pipegcn", "fused", "auto", {}, 0.0),
+    ("sage", "pipegcn-g", "blocksparse", "aggregate-first",
+     {"compress_boundary": True}, 0.0),
+    ("gcn", "pipegcn", "blocksparse", "transform-first",
+     {"wire": "int8", "fuse_exchange": False}, 0.0),
+    ("sage", "vanilla", "coo", "auto", {"wire": "auto"}, 0.0),
 ]
 
 

@@ -179,9 +179,12 @@ def test_stale_training_matches_dense_oracle():
 
 def test_unported_options_raise():
     mc = ModelConfig(feat_dim=8, hidden=8, num_layers=2, num_classes=2)
-    for pipe in (PipeConfig(wire="bf16"), PipeConfig(slice_boundary=True),
-                 PipeConfig(guard_exchange=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PipeGCN(mc, pipe)
-    # the split-phase schedule is ported (tests/test_torch_overlap.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        PipeGCN(mc, PipeConfig(guard_exchange=True))
+    # the split-phase schedule (tests/test_torch_overlap.py), the wire
+    # codecs and feature slicing (tests/test_torch_slice.py) are ported
     PipeGCN(mc, PipeConfig(overlap="split-phase"))
+    for pipe in (PipeConfig(wire="bf16"), PipeConfig(wire="auto"),
+                 PipeConfig(compress_boundary=True),
+                 PipeConfig(slice_boundary=True)):
+        PipeGCN(mc, pipe)

@@ -41,6 +41,13 @@ CONFIGS = [("blocksparse", "pipegcn", "auto", True),
            ("fused", "pipegcn", "split-phase", False),
            ("coo", "vanilla", "split-phase", True)]
 
+# the same with a boundary wire codec: the encoded uint8 and bf16 wires
+# cross gloo's all_to_all_single as they are
+WIRE_CONFIGS = [("blocksparse", "pipegcn", "auto", True, "int8"),
+                ("coo", "pipegcn", "none", False, "bf16"),
+                ("fused", "vanilla", "split-phase", True, "bf16"),
+                ("blocksparse", "pipegcn", "none", True, "auto")]
+
 WORKER = textwrap.dedent('''
     import sys
     import torch
@@ -80,15 +87,16 @@ WORKER = textwrap.dedent('''
         return steps, model.forward(topo, params, data, backend=backend)
 
     res = {"split": sp is not None}
-    for agg, variant, overlap, fuse in configs:
+    for key in configs:
+        agg, variant, overlap, fuse = key[:4]
         mc = ModelConfig(feat_dim=ds.feat_dim, hidden=16, num_layers=3,
                          num_classes=ds.num_classes, dropout=0.0, agg=agg,
                          layout="rcm")
         pc = PipeConfig.named(variant)
-        pc = PipeConfig(stale=pc.stale, overlap=overlap, fuse_exchange=fuse)
+        pc = PipeConfig(stale=pc.stale, overlap=overlap, fuse_exchange=fuse,
+                        wire=key[4] if len(key) > 4 else "f32")
         model = PipeGCN(mc, pc, split=sp)
         rec = RecordingBackend(SpmdBackend(n_local))
-        key = (agg, variant, overlap, fuse)
         res[key] = run(model, rec, rank_view(topo, rank, n_local),
                        rank_view(data, rank, n_local)) + (rec.events,)
         if rank == 0:
@@ -110,7 +118,7 @@ WORKER = textwrap.dedent('''
 ''')
 
 
-def _launch(tmp_path, world, n_local):
+def _launch(tmp_path, world, n_local, configs=CONFIGS):
     """Run WORKER on `world` ranks; fail (and kill them) on a hang."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
@@ -118,7 +126,7 @@ def _launch(tmp_path, world, n_local):
     store = str(tmp_path / "rendezvous")
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(rank), str(world), str(n_local),
-         store, str(tmp_path), repr(CONFIGS)], env=env,
+         store, str(tmp_path), repr(configs)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]
     logs = []
@@ -151,13 +159,12 @@ def _assert_equal(a, b, what):
         assert a == b, what
 
 
-@pytest.mark.parametrize("world,n_local", [(2, 1), (2, 2), (4, 1), (4, 2)])
-def test_gloo_spmd_equals_sim_bitwise(tmp_path, world, n_local):
-    ranks = _launch(tmp_path, world, n_local)
+def _assert_ranks_equal_sim(ranks, configs, world, n_local):
+    """Every rank's steps, eval, schedule events and training history
+    equal the sim backend's bitwise."""
     sim = ranks[0]
     assert sim["split"]
-    for agg, variant, overlap, fuse in CONFIGS:
-        key = (agg, variant, overlap, fuse)
+    for key in configs:
         sim_steps, sim_eval, sim_events = sim["sim", key]
         for rank, res in enumerate(ranks):
             steps, (eval_loss, eval_logits), events = res[key]
@@ -179,6 +186,20 @@ def test_gloo_spmd_equals_sim_bitwise(tmp_path, world, n_local):
                       "train_pipegcn losses")
         _assert_equal(res["train"]["val_acc"],
                       sim["sim", "train"]["val_acc"], "train_pipegcn val")
+
+
+@pytest.mark.parametrize("world,n_local", [(2, 1), (2, 2), (4, 1), (4, 2)])
+def test_gloo_spmd_equals_sim_bitwise(tmp_path, world, n_local):
+    ranks = _launch(tmp_path, world, n_local)
+    _assert_ranks_equal_sim(ranks, CONFIGS, world, n_local)
+
+
+@pytest.mark.parametrize("world,n_local", [(2, 1), (2, 2)])
+def test_gloo_spmd_equals_sim_under_wire_codecs(tmp_path, world, n_local):
+    """int8, bf16 and auto wires, flat and hierarchical exchange, unsplit
+    and split: SPMD equals sim bitwise."""
+    ranks = _launch(tmp_path, world, n_local, WIRE_CONFIGS)
+    _assert_ranks_equal_sim(ranks, WIRE_CONFIGS, world, n_local)
 
 
 @pytest.mark.parametrize("n_dev,n_local", [(1, 4), (2, 2), (4, 1), (2, 3)])

@@ -127,6 +127,36 @@ def test_cli_trains_fused_on_cpu(capsys):
     assert "eval matmul order (forced, agg=fused)" in printed
 
 
+# (argv, the boundary-wire log line): the wire codecs and feature slicing on
+# grid-tiny P = 4 (a split exists there), a mixed auto plan among them
+WIRE_CLI_CASES = [
+    (["--wire", "int8", "--agg", "blocksparse"],
+     "boundary wire: L0:int8x16 L1:int8x16"),
+    (["--wire", "auto", "--slice-boundary", "--agg", "blocksparse"],
+     "boundary wire: L0:int8x16 L1:bf16x4s (s = sliced to the "
+     "post-transform width)"),
+    (["--wire", "bf16", "--overlap", "split-phase", "--agg", "blocksparse"],
+     "boundary wire: L0:bf16x16 L1:bf16x16"),
+]
+
+
+@pytest.mark.parametrize("argv,wire_line", WIRE_CLI_CASES)
+def test_cli_trains_with_wire_codecs(capsys, argv, wire_line):
+    """--wire and --slice-boundary train on the CPU, log the JAX trainer's
+    boundary-wire line, and land in the final JSON as in the JAX
+    launcher's."""
+    out = main(["--device", "cpu", "--dataset", "grid-tiny", "--partitions",
+                "4", "--epochs", "2", "--eval-every", "1"] + argv)
+    printed = capsys.readouterr().out
+    assert wire_line + "\n" in printed
+    assert out["wire"] == argv[1]
+    assert out["slice_boundary"] == ("--slice-boundary" in argv)
+    assert len(out["history"]["loss"]) == 2
+    assert all(math.isfinite(v) for v in out["history"]["loss"])
+    if "split-phase" in argv:
+        assert "overlap schedule: split-phase" in printed
+
+
 def _jax_launcher_flags() -> dict:
     """Every flag of the JAX launcher (src/repro/launch/train.py) with its
     default, read from the text of its add_argument("--...") calls, so
@@ -145,7 +175,6 @@ def _jax_launcher_flags() -> dict:
 
 # (flag, value or None for a store_true flag, ROADMAP Queue 1 item)
 UNPORTED_CASES = [
-    ("--wire", "bf16", 8), ("--slice-boundary", None, 8),
     ("--guard-exchange", None, 9), ("--max-staleness", "4", 9),
     ("--fault-rate", "0.1", 9), ("--fault-kind", "corrupt", 9),
     ("--fault-seed", "3", 9), ("--ckpt-dir", "ckpts", 9),
