@@ -155,6 +155,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
                int8 in turns (median of 20 each), with the device
                launches and busy time of one profiled step each (the
                codec's launches per step = the difference to f32's).
+  7b. faults the guarded exchange (per-row checksum column, stale
+             fallback, "es" counters), fault injection, the staleness
+             bound and checkpoint / resume; every line carries the card's
+             name and power limit:
+             - identity: checksum wires card == CPU byte for byte at
+               reddit-sim's send shapes; 2 reddit-sim steps guarded vs
+               unguarded,
+               blocksparse/auto and fused/auto under f32 and int8 wires,
+               bitwise, es all 0, exact launch counts;
+             - drills: BENCH_9.json's three degraded tiny P=4 cells give
+               its fallback counts on the card; reddit-sim P=4
+               blocksparse/auto trains 10 epochs under a 5% drop plan
+               (train_pipegcn, exact launches), its exchange_fallbacks and
+               max_effective_staleness equal to the same plan's run of
+               the COO engine in float64 on the card, whose first 2 steps
+               hold the kernel run at STEP_REL with equal es;
+             - corrupt: reddit-sim under a 2% corrupt plan flags only
+               injected sites; rows changed, flagged and missed by the
+               checksum are counted from the captured wires; 3 trainer
+               steps (health guard on) keep the state finite;
+             - checkpoint: reddit-sim at dropout 0.5, 6 epochs == 3 +
+               resume bitwise (params, Adam moments, buffers, es, CUDA
+               generator state), with the checkpoint's bytes and its save
+               and restore ms;
+             - step times: guarded vs unguarded reddit-sim step in turns
+               (g, u, u, g), medians of 20, with one profiled step each.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -1657,19 +1683,26 @@ def _wire_train(reddit, grid, runs, card):
     return out
 
 
-def _device_launches(step, state) -> tuple[int, float]:
-    """Device kernels and copies (count, busy ms) of one profiled step."""
+def _device_kernels(step, state) -> dict:
+    """Device kernels and copies of one profiled step: name -> (count,
+    ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _timed_steps(step, state, 1)
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy = sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-               for e in events)
-    return sum(e.count for e in events), busy / 1e3
+    return {e.key: (e.count, getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0))
+                    / 1e3)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA}
+
+
+def _device_launches(step, state) -> tuple[int, float]:
+    """Device kernels and copies (count, busy ms) of one profiled step."""
+    kernels = _device_kernels(step, state)
+    return (sum(n for n, _ in kernels.values()),
+            sum(ms for _, ms in kernels.values()))
 
 
 def _wire_step_times(reddit, card):
@@ -1729,6 +1762,387 @@ def phase_wire(reddit, yelp, split_pipes, runs):
     out["train"] = _wire_train(reddit, split_pipes[1], runs, card)
     out["step_times"] = _wire_step_times(reddit, card)
     log(f"wire: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------
+# Phase "faults": the guarded exchange, fault injection, the staleness
+# bound and checkpoint / resume on the card
+# ---------------------------------------------------------------------
+
+def _faults_identity(reddit, card):
+    """The checksum wires of every codec on the card equal the CPU's byte
+    for byte (N(0,1) payloads of reddit-sim's send shapes); then 2
+    reddit-sim steps (dropout 0) with the guard and without it, for
+    blocksparse/auto and fused/auto under the f32 and int8 wires: bitwise
+    equal, "es" all zero, and the guarded run's launches exactly
+    expected_launches (the guard adds no spmm or fused launch)."""
+    import torch
+    from repro_torch.core import codec
+    topo = reddit.topo
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for f in WIRE_WIDTHS["reddit-sim"]:
+        x = torch.randn(topo.num_parts, topo.num_parts, topo.slot, f,
+                        generator=gen, device="cuda")
+        for wire in codec.WIRE_FORMATS:
+            c = codec.make_codec(wire, guard=True)
+            w_card, w_cpu = c.encode(x), c.encode(x.cpu())
+            assert torch.equal(_raw(w_card), _raw(w_cpu)), (f, wire)
+            assert c.decode_checked(w_card, f, torch.float32)[1].all()
+    rows = []
+    for agg in ("blocksparse", "fused"):
+        for wire in ("f32", "int8"):
+            ref, _ = split_model(reddit, agg, dropout=0.0, wire=wire)
+            grd, _ = split_model(reddit, agg, dropout=0.0, wire=wire,
+                                 guard_exchange=True)
+            want = _steps(ref, reddit, 2)
+            reset_launches()
+            got = _steps(grd, reddit, 2)
+            launches = read_launches()
+            expect = expected_launches(grd, reddit.topo, 2, 0)
+            assert launches == expect, (agg, wire, launches, expect)
+            _bit_equal(want, got, f"guarded {agg}/{wire}")
+            assert all(int(s[2]["es"].abs().max()) == 0 for s in got)
+            rows.append(dict(agg=agg, wire=wire, launches=launches,
+                             loss=float(got[-1][0])))
+    log(f"faults identity [{card}]: checksum wires (every codec, reddit-sim "
+        f"payload shapes at widths {WIRE_WIDTHS['reddit-sim']}) card == CPU "
+        "byte for byte; reddit-sim P=4 guarded == unguarded bitwise over 2 "
+        f"steps, es all 0, exact launches: {json.dumps(rows)}")
+    return rows
+
+
+def _fault_steps(model, topo, data, params, tables, n, backend=None):
+    """n guarded steps from `params` under `tables`, plain SGD between
+    them; returns ([(loss, grads, buffers)], anomalies) with the
+    trainer's staleness bookkeeping."""
+    from repro_torch.core.trainer import _check_staleness
+    anomalies = {"exchange_fallbacks": 0,
+                 "max_effective_staleness": model.pipe.staleness_steps}
+    bufs = model.init_buffers(topo, dtype=data.x.dtype)
+    out = []
+    for t in range(n):
+        loss, grads, bufs, _ = model.train_step(topo, params, bufs, data,
+                                                backend=backend, step_idx=t,
+                                                faults=tables)
+        _check_staleness(bufs["es"].cpu().numpy(), model.pipe, anomalies, t)
+        out.append((loss, grads, bufs))
+        params = {k: params[k] - 0.01 * grads[k] for k in params}
+    return out, anomalies
+
+
+def _faults_drills(reddit, card):
+    """The fault drills on the card: BENCH_9.json's three degraded tiny
+    cells (exact fallback counts); reddit-sim P=4 blocksparse/auto for 10
+    epochs under a 5% drop plan (seed 1) through train_pipegcn with exact
+    launches, its counters equal to the same plan's run of the COO engine
+    in float64 on the card, and its first 2 steps (dropout 0) against
+    that run at STEP_REL."""
+    import dataclasses
+    import torch
+    from repro_torch.core import (ModelConfig, PipeConfig, PipeGCN,
+                                  train_pipegcn)
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.data import GraphDataPipeline
+    with open(os.path.join(ROOT, "benchmarks", "baselines",
+                           "BENCH_9.json")) as f:
+        meta = json.load(f)["meta"]["faults"]
+    tiny = GraphDataPipeline.build(meta["dataset"], 4, kind="sage",
+                                   device="cuda")
+    ds = tiny.dataset
+    mc = ModelConfig(kind="sage", feat_dim=ds.feat_dim, hidden=32,
+                     num_layers=3, num_classes=ds.num_classes, dropout=0.0,
+                     multilabel=ds.multilabel)
+    plan = FaultPlan(rate=0.05, rate_kind="drop", seed=1)
+    cells = {}
+    for cell, want in meta["degraded"].items():
+        variant, wire, k = cell.split("/")
+        k = int(k[1:])
+        pc = dataclasses.replace(PipeConfig.named(variant, gamma=0.95),
+                                 wire=wire, staleness_steps=k,
+                                 guard_exchange=True,
+                                 max_staleness=max(8, k + 4))
+        res = train_pipegcn(tiny, mc, pc, epochs=meta["epochs"],
+                            eval_every=meta["epochs"], device="cuda",
+                            faults=plan)
+        got = (res.anomalies["exchange_fallbacks"],
+               res.anomalies["max_effective_staleness"])
+        assert got == (want["fallbacks"], want["es_max"]), (cell, got, want)
+        cells[cell] = got
+    log(f"faults drills [{card}]: BENCH_9.json degraded cells on the card "
+        f"(fallbacks, es max): {json.dumps(cells)} == the JSON's")
+
+    epochs = 10
+    pipe = dataclasses.replace(PipeConfig.named("pipegcn"),
+                               guard_exchange=True)
+    mc, lr = _model_config(reddit, "blocksparse", "auto")
+    reset_launches()
+    res = train_pipegcn(reddit, mc, pipe, epochs=epochs, lr=lr, seed=0,
+                        eval_every=EVAL_EVERY, faults=plan, device="cuda",
+                        log=lambda s: log(f"faults drill reddit-sim: {s}"))
+    launches = read_launches()
+    model = PipeGCN(mc, pipe, split=reddit.split_spec())
+    n_eval = len(res.history["epoch"])
+    expect = expected_launches(model, reddit.topo, epochs, n_eval)
+    assert launches == expect, (launches, expect)
+    assert all(math.isfinite(v) for v in res.history["loss"]), res.history
+    tables = plan.compile(epochs, mc.num_layers, reddit.topo.num_parts,
+                          device="cuda")
+    kern, _ = split_model(reddit, "blocksparse", dropout=0.0,
+                          guard_exchange=True)
+    coo, _ = split_model(reddit, "coo", dropout=0.0, guard_exchange=True)
+    params0 = coo.init_params(torch.Generator(device="cuda").manual_seed(0))
+    f64_topo, f64_data = reddit.topo.to(torch.float64), _float64(
+        reddit.train_data)
+    ref, ref_anom = _fault_steps(
+        coo, f64_topo, f64_data, {k: v.double() for k, v in params0.items()},
+        tables, epochs)
+    got, _ = _fault_steps(kern, reddit.topo, reddit.train_data, params0,
+                          tables, 2)
+    diffs = []
+    for t in range(2):
+        diffs += _leaf_diffs(got[t], ref[t], f"faults drill step {t}",
+                             STEP_REL)
+        assert torch.equal(got[t][2]["es"], ref[t][2]["es"]), t
+    keys = ("exchange_fallbacks", "max_effective_staleness")
+    drill = {k: res.anomalies[k] for k in keys}
+    assert drill == {k: ref_anom[k] for k in keys}, (drill, ref_anom)
+    assert drill["exchange_fallbacks"] > 0
+    row = dict(epochs=epochs, plan="drop 5% seed 1",
+               sites=int(tables.drop_np.sum()), **drill,
+               launches=launches, loss=res.history["loss"][-1],
+               val=res.final_metrics["val"],
+               steps_worst_rel_vs_coo_f64=max(diffs), bar=STEP_REL)
+    log(f"faults drills [{card}]: reddit-sim P=4 blocksparse/auto guarded "
+        f"10 epochs, counters == COO f64's on the card: {json.dumps(row)}")
+    return dict(tiny=cells, reddit=row)
+
+
+def _wire_rows(model, topo, clean, faulted):
+    """Rows of a step's fused forward and backward wires (captured sends,
+    fault-free and faulted, from the same state) that the faults changed,
+    that the receiver flags, and that it misses (changed, checksum
+    intact); fails on a flagged row the faults did not change."""
+    import torch
+    codecs, pw = model.wire_codecs(topo), model.payload_widths(topo)
+    L = len(codecs)
+    counts = dict(changed_rows=0, flagged_rows=0, missed_rows=0)
+    for layers, a, b in ((range(L), clean[0], faulted[0]),
+                         (range(L - 1, 0, -1), clean[1], faulted[1])):
+        lo = 0
+        for ell in layers:
+            hi = lo + codecs[ell].wire_width(pw[ell])
+            x, y = a[..., lo:hi].contiguous(), b[..., lo:hi].contiguous()
+            changed = (x.view(torch.uint8) != y.view(torch.uint8)).any(-1)
+            valid = codecs[ell].decode_checked(y, pw[ell], x.dtype)[1]
+            assert not (~valid & ~changed).any(), ell
+            counts["changed_rows"] += int(changed.sum())
+            counts["flagged_rows"] += int((~valid).sum())
+            counts["missed_rows"] += int((changed & valid).sum())
+            lo = hi
+    return counts
+
+
+def _faults_corrupt(reddit, card):
+    """reddit-sim (blocksparse/auto, dropout 0, guarded) under a 2%
+    background corrupt plan (density 0.02 per byte). Per step t, from the
+    same state with and without the plan: every flagged (dst, direction,
+    layer, src) site lies among the injected ones, and the rows the
+    faults changed, the rows flagged and the rows missed (flips whose
+    byte sum is unchanged mod 256: about 1 in 256 changed rows, decoding
+    to garbage) are counted from the captured wires. Then 3 steps of the
+    trainer's step (health guard on, as train_pipegcn runs it): params,
+    Adam state and buffers stay finite; steps the health guard rolled
+    back are counted."""
+    import torch
+    from repro_torch.core import HealthConfig, make_train_step
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.pipegcn import SimBackend
+    from repro_torch.optim import adam
+    model, lr = split_model(reddit, "blocksparse", dropout=0.0,
+                            guard_exchange=True)
+    topo, data = reddit.topo, reddit.train_data
+    tables = FaultPlan(rate=0.02, rate_kind="corrupt", seed=7).compile(
+        3, model.model.num_layers, topo.num_parts, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    bufs0 = model.init_buffers(topo)
+    rows = []
+    for t in range(3):
+        clean, faulted = _capture(SimBackend()), _capture(SimBackend())
+        model.train_step(topo, params, bufs0, data, backend=clean)
+        _, _, bufs, _ = model.train_step(topo, params, bufs0, data,
+                                         backend=faulted, step_idx=t,
+                                         faults=tables)
+        flagged = bufs["es"].cpu().numpy() > 0          # (dst, d, L, src)
+        injected = tables.corrupt_np[t].transpose(3, 0, 1, 2)
+        assert not (flagged & ~injected).any(), t
+        rows.append(dict(step=t, injected_sites=int(injected.sum()),
+                         flagged_sites=int(flagged.sum()),
+                         **_wire_rows(model, topo, clean.sent,
+                                      faulted.sent)))
+    assert sum(r["flagged_sites"] for r in rows) > 0
+    opt = adam(lr)
+    step = make_train_step(model, opt, HealthConfig())
+    state = [params, opt.init(params), bufs0]
+    skipped = 0
+    for t in range(3):
+        loss, *state, rep = step(topo, *state, data, None, t, tables)
+        skipped += not bool(rep["ok"])
+        for x in _leaves((state[0], state[1].mu, state[1].nu, state[2])):
+            if x.is_floating_point():
+                assert torch.isfinite(x).all(), f"trainer step {t}"
+    out = dict(per_step=rows, trainer_steps=3, skipped_by_health_guard=skipped)
+    log(f"faults corrupt [{card}]: reddit-sim P=4 2% corrupt plan, guarded: "
+        f"flagged sites within the injected, trainer state finite: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _faults_checkpoint(reddit, card):
+    """reddit-sim blocksparse/auto at dropout 0.5 with the guard: 6 epochs
+    == 3 epochs + resume, bitwise over the whole checkpointed state
+    (params, Adam moments, buffers, es, the CUDA generator state); the
+    checkpoint's bytes and its save and restore times."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import PipeConfig, PipeGCN, train_pipegcn
+    from repro_torch.optim import adam
+    pipe = dataclasses.replace(PipeConfig.named("pipegcn"),
+                               guard_exchange=True)
+    mc, lr = _model_config(reddit, "blocksparse", "auto")
+    assert mc.dropout == 0.5
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(lr=lr, seed=0, eval_every=EVAL_EVERY, device="cuda")
+    try:
+        full = train_pipegcn(reddit, mc, pipe, epochs=6,
+                             ckpt_dir=os.path.join(root, "full"),
+                             checkpoint_every=6, **kw)
+        part = os.path.join(root, "part")
+        train_pipegcn(reddit, mc, pipe, epochs=3, ckpt_dir=part,
+                      checkpoint_every=3, **kw)
+        res = train_pipegcn(reddit, mc, pipe, epochs=6, ckpt_dir=part,
+                            checkpoint_every=3, resume=True, **kw)
+        assert res.resumed_from == 3
+        model = PipeGCN(mc, pipe)
+        params = model.init_params(torch.Generator(device="cuda"))
+        tmpl = {"params": params, "opt_state": adam(lr).init(params),
+                "buffers": model.init_buffers(reddit.topo),
+                "key": torch.Generator(device="cuda").get_state(),
+                "epoch": 0}
+        t0 = time.perf_counter()
+        a = restore_checkpoint(os.path.join(root, "full"), 6, tmpl)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        b = restore_checkpoint(part, 6, tmpl)
+
+        def tensors(s):
+            return dict(params=s["params"], mu=s["opt_state"].mu,
+                        nu=s["opt_state"].nu, buffers=s["buffers"],
+                        key=s["key"])
+
+        _bit_equal(tensors(a), tensors(b),
+                   "resumed checkpoint vs uninterrupted")
+        assert a["epoch"] == b["epoch"] == 6
+        assert a["opt_state"].step == b["opt_state"].step == 6
+        for k in full.params:
+            assert torch.equal(full.params[k], res.params[k]), k
+        assert res.history["loss"][-1] == full.history["loss"][-1]
+        step_dir = os.path.join(part, "step_00000006")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        raw = sum(x.numel() * x.element_size() for x in _leaves(tensors(a)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(root, "timed"), 6, a)
+        save_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = dict(checkpoint_bytes=nbytes, state_bytes=raw, save_ms=save_ms,
+               restore_ms=restore_ms, key_bytes=int(a["key"].numel()),
+               loss=res.history["loss"][-1])
+    log(f"faults checkpoint [{card}]: reddit-sim P=4 blocksparse/auto "
+        f"dropout 0.5 guarded, 6 epochs == 3 + resume bitwise (params, "
+        f"Adam moments, buffers, es, CUDA generator state): "
+        f"{json.dumps(row)}")
+    return row
+
+
+def _faults_step_times(reddit, card):
+    """reddit-sim blocksparse/auto train step (pipegcn, f32 wire) with the
+    guard (and the trainer's host read of "es" after each step) and
+    without: 2 warm-up steps, then 10 steps each in turns (g, u, u, g),
+    medians of 20; one profiled step each for device launches and busy
+    time."""
+    import dataclasses
+    import torch
+    from repro_torch.core import (HealthConfig, PipeConfig, PipeGCN,
+                                  make_train_step)
+    from repro_torch.optim import adam
+    state = {}
+    for name, guard in (("guarded", True), ("unguarded", False)):
+        mc, lr = _model_config(reddit, "blocksparse", "auto")
+        model = PipeGCN(mc, dataclasses.replace(PipeConfig.named("pipegcn"),
+                                                guard_exchange=guard))
+        opt = adam(lr)
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        inner = make_train_step(model, opt, HealthConfig())
+
+        def step(*a, inner=inner, guard=guard):
+            out = inner(*a)
+            if guard:
+                out[3]["es"].cpu()      # the trainer's staleness check
+            return out
+
+        state[name] = (step, [
+            reddit.topo, params, opt.init(params),
+            model.init_buffers(reddit.topo), reddit.train_data,
+            torch.Generator(device="cuda").manual_seed(1)])
+        _timed_steps(*state[name], 2)
+    times = {"guarded": [], "unguarded": []}
+    for name in ("guarded", "unguarded", "unguarded", "guarded"):
+        times[name] += _timed_steps(*state[name], 10)
+    prof = {n: _device_kernels(*state[n]) for n in times}
+    out = {}
+    for name, ts in times.items():
+        q = sorted(ts)
+        out[name] = dict(
+            median=(q[9] + q[10]) / 2, q1=q[4], q3=q[14], max=q[-1],
+            device_launches=sum(n for n, _ in prof[name].values()),
+            device_busy_ms=sum(ms for _, ms in prof[name].values()))
+    g, u = out["guarded"], out["unguarded"]
+    # the device kernels the guard adds the most time to, by name
+    extra = {k: (n - prof["unguarded"].get(k, (0, 0.0))[0],
+                 ms - prof["unguarded"].get(k, (0, 0.0))[1])
+             for k, (n, ms) in prof["guarded"].items()}
+    out["guard"] = dict(step_ms=g["median"] - u["median"],
+                        step_pct=100 * (g["median"] / u["median"] - 1),
+                        launches=g["device_launches"] - u["device_launches"],
+                        busy_ms=g["device_busy_ms"] - u["device_busy_ms"],
+                        top_kernels=[[k[:70], n, ms] for k, (n, ms) in sorted(
+                            extra.items(), key=lambda kv: -kv[1][1])[:8]])
+    log(f"faults step times [{card}]: reddit-sim P=4 blocksparse/auto "
+        f"train step ms (20 steps each, in turns g, u, u, g): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_faults(reddit):
+    """The guarded exchange and fault tolerance on the card: zero-fault
+    identity with exact launches, the drills (BENCH_9.json's counts, the
+    reddit-sim drill against COO f64), a corrupt plan, checkpoint /
+    resume, and the guarded step's time."""
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    out = dict(identity=_faults_identity(reddit, card),
+               drills=_faults_drills(reddit, card),
+               corrupt=_faults_corrupt(reddit, card),
+               checkpoint=_faults_checkpoint(reddit, card),
+               step_times=_faults_step_times(reddit, card))
+    log(f"faults: phase took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2134,6 +2548,7 @@ def main(argv) -> int:
     phase_step_times(reddit, yelp)
     phase_split_step_times(split_pipes)
     phase_wire(reddit, yelp, split_pipes, runs)
+    phase_faults(reddit)
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

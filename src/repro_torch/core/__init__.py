@@ -1,6 +1,9 @@
-"""PipeGCN core: configuration, the partition-parallel step, health guards
-and the trainer."""
+"""PipeGCN core: configuration, the partition-parallel step, fault
+injection, health guards and the trainer."""
 from repro_torch.core.config import ModelConfig, PipeConfig
+from repro_torch.core.faults import (FaultPlan, FaultSite,
+                                     StalenessExceededError,
+                                     device_down_site)
 from repro_torch.core.health import HealthConfig, TrainingAnomalyError
 from repro_torch.core.pipegcn import (PipeGCN, ShardedData, Topology,
                                       params_from_jax, shard_data,
@@ -10,6 +13,7 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "ModelConfig", "PipeConfig", "HealthConfig", "TrainingAnomalyError",
+    "FaultPlan", "FaultSite", "StalenessExceededError", "device_down_site",
     "PipeGCN", "ShardedData", "Topology", "params_from_jax", "resolve_device",
     "shard_data", "topology_from", "TrainResult", "make_train_step",
     "train_pipegcn",

@@ -1,7 +1,6 @@
 """Boundary-traffic codecs for the PipeGCN exchange wire.
 
-Port of the JAX package's ``repro.core.codec`` (without the checksum
-guard, which belongs to the fault-tolerance slice). Every boundary payload
+Port of the JAX package's ``repro.core.codec``. Every boundary payload
 (forward features, backward feature-gradients) goes through exactly one
 codec before it reaches a backend ``exchange`` / ``fused_exchange`` and
 through the matching ``decode`` right after, so the step math on either
@@ -38,6 +37,12 @@ division on every device) and then cast to f32 (``qmax`` = 127 for int8,
 ``q = clip(round(x / scale), -qmax, qmax)`` with the scale cast back to
 the payload's dtype; round is half to even, as ``jnp.round``. The error
 is at most ``scale / 2`` per element.
+
+Guard (``PipeConfig.guard_exchange``): `ChecksumCodec` wraps any codec
+and appends one column per wire row holding `row_checksum` of the row,
+the sum of its bytes mod 256, as a value in the wire's own dtype. The
+receiver recomputes it (`decode_checked`) and falls back to its stale
+buffer on a mismatch.
 
 A bitcast is ``t.contiguous().view(dtype)``: a slice of a packed uint8
 buffer need not start on a 4-byte boundary, so every bitcast to a wider
@@ -196,17 +201,103 @@ class QuantCodec:
         return q.to(dtype) * sfull.to(dtype)
 
 
-def make_codec(wire: str, block: int = WIRE_BLOCK):
-    """The codec instance for one resolved wire-format name."""
+def row_checksum(wire):
+    """Per-row checksum of a wire tensor: the sum of the row's bytes mod
+    256, over the exact bytes on the wire (floats are bitcast, not
+    rounded), so any single flipped bit changes it. Returns an int32
+    tensor of shape ``wire.shape[:-1]``.
+
+    The bytes are summed as uint8 with a uint8 result: the reduction
+    accumulates in a wider integer and the cast back keeps the sum mod
+    256, exactly. Asking for an int32 result instead would make PyTorch
+    cast the whole input to int32 first (a 4x copy of the wire). A float
+    wire whose last axis is contiguous is viewed as bytes where it lies,
+    without a copy."""
+    if wire.dtype == torch.uint8:
+        b = wire
+    elif wire.stride(-1) == 1:
+        b = wire.view(torch.uint8)
+    else:
+        b = _bitcast(wire, torch.uint8)
+    return torch.sum(b, dim=-1, dtype=torch.uint8).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChecksumCodec:
+    """Guard wrapper (``PipeConfig.guard_exchange``): any inner codec plus
+    ONE trailing checksum column per wire row.
+
+    The column stores ``row_checksum`` of the inner wire row as a small
+    integer value (0..255) in the wire's own dtype — exact in uint8,
+    bfloat16, f32 and f64, so it survives the fused pack's float promotion
+    (`decode_checked` casts the row back to the inner wire dtype before
+    summing again). Riding inside the wire keeps the exchange a pure
+    permutation: no extra collective. ``name`` is the inner codec's."""
+
+    inner: NativeCodec | Bf16Codec | QuantCodec
+
+    @property
+    def name(self) -> str:
+        """The wrapped codec's wire-format name (the guard is orthogonal)."""
+        return self.inner.name
+
+    def wire_width(self, f: int) -> int:
+        """Inner wire columns plus the checksum column."""
+        return self.inner.wire_width(f) + 1
+
+    def wire_bytes(self, f: int) -> float:
+        """Inner wire bytes plus one column in the wire dtype."""
+        extra = 1.0 if isinstance(self.inner, QuantCodec) else \
+            self.inner.wire_bytes(1)
+        return self.inner.wire_bytes(f) + extra
+
+    def _wire_dtype(self, dtype):
+        """The inner codec's on-wire dtype (to undo pack promotion)."""
+        if isinstance(self.inner, QuantCodec):
+            return torch.uint8
+        if isinstance(self.inner, Bf16Codec):
+            return torch.bfloat16
+        return dtype
+
+    def encode(self, x):
+        """Inner-encode, then append the per-row checksum column."""
+        wire = self.inner.encode(x)
+        c = row_checksum(wire).to(wire.dtype)
+        return torch.cat([wire, c[..., None]], dim=-1)
+
+    def _split(self, wire, f: int, dtype):
+        pc = self.inner.wire_width(f)
+        return wire[..., :pc].to(self._wire_dtype(dtype)), wire[..., pc]
+
+    def decode(self, wire, f: int, dtype):
+        """Strip the checksum column and inner-decode (no verification:
+        the receive path uses `decode_checked`)."""
+        return self.inner.decode(self._split(wire, f, dtype)[0], f, dtype)
+
+    def decode_checked(self, wire, f: int, dtype):
+        """Decode and verify: ``(payload, valid)``, ``valid`` a per-row
+        bool of shape ``wire.shape[:-1]``, True iff the recomputed
+        checksum equals the stored column (a corrupted stored column,
+        NaN included, reads as invalid)."""
+        inner_wire, stored = self._split(wire, f, dtype)
+        valid = stored == row_checksum(inner_wire).to(wire.dtype)
+        return self.inner.decode(inner_wire, f, dtype), valid
+
+
+def make_codec(wire: str, block: int = WIRE_BLOCK, guard: bool = False):
+    """The codec instance for one resolved wire-format name; ``guard=True``
+    wraps it in a `ChecksumCodec` (one extra column per row)."""
     if wire == "f32":
-        return NativeCodec()
-    if wire == "bf16":
-        return Bf16Codec()
-    if wire == "int8":
-        return QuantCodec(bits=8, block=block)
-    if wire == "int4":
-        return QuantCodec(bits=4, block=block)
-    raise ValueError(f"unknown wire format {wire!r}; have {WIRE_FORMATS}")
+        codec = NativeCodec()
+    elif wire == "bf16":
+        codec = Bf16Codec()
+    elif wire == "int8":
+        codec = QuantCodec(bits=8, block=block)
+    elif wire == "int4":
+        codec = QuantCodec(bits=4, block=block)
+    else:
+        raise ValueError(f"unknown wire format {wire!r}; have {WIRE_FORMATS}")
+    return ChecksumCodec(codec) if guard else codec
 
 
 # ----------------------------------------------------------------------

@@ -40,9 +40,15 @@ The step runs variants vanilla / pipegcn / -g / -f / -gf, k-step FIFOs
 (``PipeConfig.wire``: f32, bf16, int8, int4, auto; ``core/codec.py``)
 and feature slicing (``slice_boundary``: a sliced layer ships its
 post-transform rows). Every exchanged payload is encoded before the
-exchange and decoded after it, in both schedules. The guarded exchange is
-not ported: it raises ``NotImplementedError`` when a ``PipeGCN`` is
-built, naming the ROADMAP item that ports it.
+exchange and decoded after it, in both schedules.
+
+Under ``PipeConfig.guard_exchange`` every wire carries a per-row checksum
+column (`codec.ChecksumCodec`); the receiver verifies it, rows that fail
+keep their stale buffer entry (one extra step of staleness), and the
+"es" buffer counts each (direction, layer, peer) exchange's consecutive
+fallbacks. `train_step(..., step_idx, faults)` injects a compiled
+`faults.FaultTables` plan into the encoded wires (`faults.apply_faults`).
+The guard and faults run the unsplit step.
 
 State layout (per layer ℓ; widths follow `payload_widths`: the layer input
 width, or the output width of a sliced layer; n is the number of
@@ -50,7 +56,10 @@ partitions a backend holds: P on the sim backend, n_local on a rank):
   feat_buf[ℓ] : (n, P*slot, F_ℓ)   stale boundary features   (Eq. 3 h^(t-1))
   grad_buf[ℓ] : (n, max_inner, F_ℓ) stale boundary-gradient contributions,
                 already exchanged and scattered to owner rows (Eq. 4 δ^(t-1))
-With ``staleness_steps`` k > 1 each buffer gains a leading FIFO axis of k.
+  es          : (n, 2, L, P) int32 consecutive fallbacks per (direction,
+                layer, peer), under ``guard_exchange`` only
+With ``staleness_steps`` k > 1 each feat/grad buffer gains a leading FIFO
+axis of k; "es" never does.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ import torch
 from repro_torch.core.codec import (fused_exchange_encoded, make_codec,
                                     start_fused_exchange_encoded)
 from repro_torch.core.config import ModelConfig, PipeConfig
+from repro_torch.core.faults import BWD, FWD, apply_faults
 from repro_torch.device import exact_f32_matmul, resolve_device
 from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
 from repro_torch.graph.reorder import TILE_ENGINES
@@ -240,14 +250,45 @@ def _gather_send_tail(h_tail, send_idx, send_mask, row_tail: int):
 
 def _scatter_recv(contrib, send_idx, send_mask, max_inner: int):
     """(n, P, slot, F) received gradient blocks -> (n, max_inner, F):
-    partition p adds recv[p, j, k] into its row send_idx[p, j, k]."""
+    partition p adds recv[p, j, k] into its row send_idx[p, j, k].
+
+    Deterministic on every device: one `index_add_` per peer j, in peer
+    order, and within one peer's block every real slot names a distinct
+    row (a node is sent to a peer once) while masked pad slots land in a
+    spare row per partition, so no launch adds twice to one element and
+    the CUDA atomics have no order to vary. On the CPU the sums are the
+    sequential ones of a single `index_add_` over all slots."""
     p, peers, slot, f = contrib.shape
-    contrib = torch.where(send_mask[..., None], contrib, 0.0)
+    rows = (torch.where(send_mask, send_idx.long(), max_inner)
+            + (max_inner + 1) * torch.arange(
+                p, device=contrib.device)[:, None, None])
+    out = contrib.new_zeros(p * (max_inner + 1), f)
+    for j in range(peers):
+        out.index_add_(0, rows[:, j].reshape(-1),
+                       contrib[:, j].reshape(p * slot, f))
+    return out.reshape(p, max_inner + 1, f)[:, :max_inner].contiguous()
+
+
+def _scatter_invalid_rows(inv, send_idx, max_inner: int):
+    """(n, P, slot) invalid-contribution mask -> (n, max_inner) owner rows
+    whose `_scatter_recv` sum is incomplete (any contributing slot was
+    invalid). Those rows fall back to the stale buffer wholesale: a
+    partial sum is wrong data, not one-step-stale data. An integer max
+    scatter, deterministic on every device."""
+    p = send_idx.shape[0]
     flat = (send_idx.reshape(p, -1).long()
-            + max_inner * torch.arange(p, device=contrib.device)[:, None])
-    out = contrib.new_zeros(p * max_inner, f)
-    out.index_add_(0, flat.reshape(-1), contrib.reshape(p * peers * slot, f))
-    return out.reshape(p, max_inner, f)
+            + max_inner * torch.arange(p, device=inv.device)[:, None])
+    out = torch.zeros(p * max_inner, dtype=torch.int32, device=inv.device)
+    out.scatter_reduce_(0, flat.reshape(-1),
+                        inv.reshape(-1).to(torch.int32), "amax")
+    return out.reshape(p, max_inner) > 0
+
+
+def _part_ids(backend, n: int) -> list[int]:
+    """Global partition ids of the backend's leading-axis slots: the
+    SPMD rank's own, else all n of the sim backend."""
+    ids = getattr(backend, "part_ids", None)
+    return ids() if ids is not None else list(range(n))
 
 
 # ----------------------------------------------------------------------
@@ -510,6 +551,11 @@ class SpmdBackend(_ExchangeBase):
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, 0)
 
+    def barrier(self):
+        """Wait until every rank of the group gets here."""
+        import torch.distributed as dist
+        dist.barrier(group=self.group)
+
     def psum(self, x):
         return self.gather_parts(x).sum(0)
 
@@ -580,10 +626,6 @@ class PipeGCN:
 
     def __post_init__(self):
         get_engine(self.model.agg)      # unknown or unported engines raise
-        if self.pipe.guard_exchange:
-            raise NotImplementedError(
-                "not ported to repro_torch yet: guard_exchange (ROADMAP "
-                "Queue 1 item 9: fault tolerance)")
 
     # ---------------- parameters & state ----------------
 
@@ -606,7 +648,10 @@ class PipeGCN:
         """Zero pipeline state (Alg. 1 line 6: boundary features start at
         0) for the partitions `topo` holds (all P, or a rank's n_local).
         With staleness_steps k > 1 each buffer is a FIFO along a new
-        leading axis of size k (slot 0 = oldest = consumed)."""
+        leading axis of size k (slot 0 = oldest = consumed). Under
+        `guard_exchange` the dict gains "es": int32 consecutive-fallback
+        counters of shape (n, 2, L, P), (direction, layer, peer) per
+        partition, with no FIFO axis."""
         n = topo.send_idx.shape[0]
         k = self.pipe.staleness_steps
         lead = ((k,) if k > 1 else ()) + (n,)
@@ -617,7 +662,12 @@ class PipeGCN:
                                     device=dev))
             grad.append(torch.zeros(lead + (topo.max_inner, w), dtype=dtype,
                                     device=dev))
-        return {"feat": tuple(feat), "grad": tuple(grad)}
+        out = {"feat": tuple(feat), "grad": tuple(grad)}
+        if self.pipe.guard_exchange:
+            out["es"] = torch.zeros(
+                (n, 2, self.model.num_layers, topo.num_parts),
+                dtype=torch.int32, device=dev)
+        return out
 
     # ---------------- pipeline-buffer semantics ----------------
 
@@ -633,6 +683,24 @@ class PipeGCN:
         if smooth:
             return self.pipe.gamma * buf + (1 - self.pipe.gamma) * fresh
         return fresh
+
+    def _update_buffer_guarded(self, buf, fresh, smooth: bool, valid):
+        """`_update_buffer` with per-row fallback (guard_exchange): rows of
+        `fresh` whose checksum failed keep their previous value — the FIFO
+        re-pushes its newest entry, EMA / replace keep the old row — so a
+        lost payload is one extra step of staleness. `valid=None` (guard
+        off) is `_update_buffer`; an all-True mask gives its bits (a
+        select, never arithmetic)."""
+        if valid is None:
+            return self._update_buffer(buf, fresh, smooth)
+        v = valid[..., None]
+        if self.pipe.staleness_steps > 1:
+            pushed = torch.where(v, fresh, buf[-1])
+            return torch.cat([buf[1:], pushed[None]], dim=0)
+        if smooth:
+            upd = self.pipe.gamma * buf + (1 - self.pipe.gamma) * fresh
+            return torch.where(v, upd, buf)
+        return torch.where(v, fresh, buf)
 
     # ---------------- shared layer math ----------------
 
@@ -660,8 +728,8 @@ class PipeGCN:
         engines that consume tile streams (for COO the split is pure
         masking overhead). Feature slicing disables the split (the sliced
         send exists only after the dense transform, so there is no
-        boundary-first phase to overlap), and so would the guarded
-        exchange (not ported yet)."""
+        boundary-first phase to overlap), and so does the guarded
+        exchange (the split step has no validity-mask path)."""
         if (self.pipe.overlap == "none" or self.split is None
                 or self.pipe.slice_boundary or self.pipe.guard_exchange):
             return None
@@ -700,14 +768,19 @@ class PipeGCN:
         """Per-layer boundary codec (`repro_torch.core.codec`) the step
         encodes with. A concrete `PipeConfig.wire` applies to every layer;
         "auto" picks per layer by wire bytes over the payload widths
-        (`analysis.cost.choose_wire_formats`; int4 is explicit-only)."""
+        (`analysis.cost.choose_wire_formats`; int4 is explicit-only).
+        Under `guard_exchange` every codec is wrapped in a ChecksumCodec
+        (one extra wire column per row, verified on decode)."""
         L = self.model.num_layers
+        g = self.pipe.guard_exchange
         if self.pipe.wire != "auto":
-            return (make_codec(self.pipe.wire, self.pipe.wire_block),) * L
+            return (make_codec(self.pipe.wire, self.pipe.wire_block,
+                               guard=g),) * L
         from repro_torch.analysis.cost import choose_wire_formats
         fmts = choose_wire_formats(self.payload_widths(topo),
                                    block=self.pipe.wire_block)
-        return tuple(make_codec(f, self.pipe.wire_block) for f in fmts)
+        return tuple(make_codec(f, self.pipe.wire_block, guard=g)
+                     for f in fmts)
 
     def _base_orders(self, topo: Topology, train: bool = True,
                      fused: bool | None = None) -> tuple[str, ...]:
@@ -855,12 +928,22 @@ class PipeGCN:
     # ---------------- forward/backward step ----------------
 
     def _step_impl(self, backend, topo: Topology, params, buffers, data,
-                   generator, train: bool):
+                   generator, train: bool, step_idx=None, faults=None):
         """One step over the backend's partitions. Returns (loss, logits,
         grads, new_buffers); grads and new_buffers are None when
-        `train=False`. Runs the split-phase step when the split is active."""
+        `train=False`. Runs the split-phase step when the split is active
+        and no faults are injected.
+
+        `faults` (compiled FaultTables) injects drop / corrupt faults into
+        the encoded wires at host step `step_idx`; under
+        `pipe.guard_exchange` the decode verifies each row's checksum and
+        failed rows fall back to their stale buffer entry
+        (`_update_buffer_guarded`). `faults=None` runs the fault-free
+        step."""
         sp = self._split_active()
-        if sp is not None:
+        if sp is not None and faults is None:
+            # the split step has no injection points; a faulted run takes
+            # the unsplit body, whose numerics are the same
             return self._step_impl_split(backend, topo, params, buffers,
                                          data, generator, train, sp)
         L = self.model.num_layers
@@ -880,6 +963,12 @@ class PipeGCN:
         codecs = self.wire_codecs(topo)
         pw = self.payload_widths(topo)
         dropout_rate = self.model.dropout if train else 0.0
+        guard = pipe.guard_exchange
+        pids = _part_ids(backend, n) if faults is not None else None
+        # per-layer peer verdicts (guard only): bool (n, P) per direction,
+        # folded into the "es" consecutive-fallback counters
+        feat_pv = [None] * L
+        grad_pv = [None] * L
 
         h = data.x
         residuals = []
@@ -889,15 +978,33 @@ class PipeGCN:
 
         def land(ell, recv, dtype):
             """Decode one received (n, P, slot, ·) feature wire to the
-            (n, P·slot, pw) halo layout in the payload's `dtype`."""
-            fresh = codecs[ell].decode(recv, pw[ell], dtype)
-            return fresh.reshape(n, P * topo.slot, pw[ell])
+            (n, P·slot, pw) halo layout in the payload's `dtype`; under the
+            guard also verify each row's checksum, returning the
+            (n, P·slot) valid-row mask (None without the guard) and
+            folding the per-peer verdict into `feat_pv`."""
+            if guard:
+                fresh, valid = codecs[ell].decode_checked(recv, pw[ell],
+                                                          dtype)
+                feat_pv[ell] = valid.all(dim=-1)
+                vrows = valid.reshape(n, P * topo.slot)
+            else:
+                fresh = codecs[ell].decode(recv, pw[ell], dtype)
+                vrows = None
+            return fresh.reshape(n, P * topo.slot, pw[ell]), vrows
+
+        def encode(ell, payload, direction):
+            """Encode one payload and inject this step's faults into it."""
+            wire = codecs[ell].encode(payload)
+            if faults is not None:
+                wire = apply_faults(wire, faults, step_idx, direction, ell,
+                                    pids, guard)
+            return wire
 
         def ship_feat(ell, payload):
             """Encode one layer's (n, P, slot, pw) feature send, exchange it
             (or queue it for the fused exchange), decode, and return the
             halo the layer consumes this step."""
-            wire = codecs[ell].encode(payload)
+            wire = encode(ell, payload, FWD)
             if fuse:
                 # Stale mode: the exchange result is consumed only at t+1,
                 # so defer the wire into the packed exchange and read this
@@ -905,10 +1012,10 @@ class PipeGCN:
                 pending_feat.append(wire)
                 feat_dtypes.append(payload.dtype)
                 return self._consume_buffer(buffers["feat"][ell])
-            fresh = land(ell, backend.exchange(wire), payload.dtype)
+            fresh, vrows = land(ell, backend.exchange(wire), payload.dtype)
             if pipe.stale:
-                new_feat[ell] = self._update_buffer(
-                    buffers["feat"][ell], fresh, pipe.smooth_feat)
+                new_feat[ell] = self._update_buffer_guarded(
+                    buffers["feat"][ell], fresh, pipe.smooth_feat, vrows)
                 return self._consume_buffer(buffers["feat"][ell])
             new_feat[ell] = buffers["feat"][ell]
             return fresh
@@ -956,9 +1063,9 @@ class PipeGCN:
             # pre-pack dtype.
             recvs = fused_exchange_encoded(backend, pending_feat)
             for ell, recv in enumerate(recvs):
-                new_feat[ell] = self._update_buffer(
-                    buffers["feat"][ell], land(ell, recv, feat_dtypes[ell]),
-                    pipe.smooth_feat)
+                fresh, vrows = land(ell, recv, feat_dtypes[ell])
+                new_feat[ell] = self._update_buffer_guarded(
+                    buffers["feat"][ell], fresh, pipe.smooth_feat, vrows)
 
         logits = h
         loss, dlogits = self._loss(backend, logits, data)
@@ -972,9 +1079,23 @@ class PipeGCN:
 
         def land_grad(ell, recv, dtype):
             """Decode one received gradient wire and scatter it to owner
-            rows."""
-            return _scatter_recv(codecs[ell].decode(recv, pw[ell], dtype),
-                                 send_idx, send_mask, max_inner)
+            rows; returns (contribution, valid owner rows or None). Under
+            the guard, rows failing their checksum are zeroed by a select
+            (a corrupt row may decode to NaN) before the scatter-add, and
+            every owner row any of them touched is marked invalid; the
+            per-peer verdict lands in `grad_pv` (masked pad slots carry no
+            data and are exempt)."""
+            if not guard:
+                return _scatter_recv(codecs[ell].decode(recv, pw[ell], dtype),
+                                     send_idx, send_mask, max_inner), None
+            db_recv, valid = codecs[ell].decode_checked(recv, pw[ell], dtype)
+            inv = ~valid & send_mask
+            grad_pv[ell] = ~inv.any(dim=-1)
+            db_recv = torch.where(valid[..., None], db_recv,
+                                  torch.zeros((), dtype=db_recv.dtype,
+                                              device=db_recv.device))
+            fresh = _scatter_recv(db_recv, send_idx, send_mask, max_inner)
+            return fresh, ~_scatter_invalid_rows(inv, send_idx, max_inner)
 
         def ship_grad(ell, db, compute_dtype):
             """Encode one layer's (n, P, slot, pw) gradient send, exchange
@@ -984,14 +1105,14 @@ class PipeGCN:
             under the identity codec, the compute dtype after a lossy
             wire."""
             dtype = db.dtype if codecs[ell].name == "f32" else compute_dtype
-            wire = codecs[ell].encode(db)
+            wire = encode(ell, db, BWD)
             if fuse:
                 pending_grad.append((ell, wire, dtype))
                 return self._consume_buffer(buffers["grad"][ell])
-            fresh = land_grad(ell, backend.exchange(wire), dtype)
+            fresh, vrows = land_grad(ell, backend.exchange(wire), dtype)
             if pipe.stale:
-                new_grad[ell] = self._update_buffer(
-                    buffers["grad"][ell], fresh, pipe.smooth_grad)
+                new_grad[ell] = self._update_buffer_guarded(
+                    buffers["grad"][ell], fresh, pipe.smooth_grad, vrows)
                 return self._consume_buffer(buffers["grad"][ell])
             new_grad[ell] = buffers["grad"][ell]
             return fresh
@@ -1040,12 +1161,22 @@ class PipeGCN:
             recvs = fused_exchange_encoded(backend,
                                            [w_ for _, w_, _ in pending_grad])
             for (ell, _, dtype), recv in zip(pending_grad, recvs):
-                new_grad[ell] = self._update_buffer(
-                    buffers["grad"][ell], land_grad(ell, recv, dtype),
-                    pipe.smooth_grad)
+                fresh, vrows = land_grad(ell, recv, dtype)
+                new_grad[ell] = self._update_buffer_guarded(
+                    buffers["grad"][ell], fresh, pipe.smooth_grad, vrows)
 
-        return loss, logits, grads, {"feat": tuple(new_feat),
-                                     "grad": tuple(new_grad)}
+        new_buffers = {"feat": tuple(new_feat), "grad": tuple(new_grad)}
+        if guard:
+            # consecutive fallbacks per (direction, layer, peer): a valid
+            # arrival resets to 0, a fallback adds 1; layer 0 ships no
+            # backward gradient and counts as valid. Partition-local: no
+            # exchange enters the step.
+            ones = torch.ones_like(feat_pv[0])
+            gv = [pv if pv is not None else ones for pv in grad_pv]
+            ok = torch.stack([torch.stack(feat_pv, dim=-2),
+                              torch.stack(gv, dim=-2)], dim=-3)
+            new_buffers["es"] = torch.where(ok, 0, buffers["es"] + 1)
+        return loss, logits, grads, new_buffers
 
     # ---------------- split-phase step ----------------
 
@@ -1317,18 +1448,24 @@ class PipeGCN:
     # ---------------- public API ----------------
 
     def train_step(self, topo: Topology, params, buffers, data: ShardedData,
-                   generator: torch.Generator | None = None, backend=None):
+                   generator: torch.Generator | None = None, backend=None,
+                   step_idx: int | None = None, faults=None):
         """Training step over the backend's partitions (default the sim
         backend: all P). Returns (loss, grads, new_buffers, logits);
         grads are summed over all partitions. `generator` draws the
-        dropout masks (one per layer); it may be None at dropout 0."""
+        dropout masks (one per layer); it may be None at dropout 0.
+        `faults` (compiled FaultTables) and `step_idx` inject that step's
+        exchange faults."""
         if self.model.dropout > 0.0 and generator is None:
             raise ValueError("dropout > 0 needs a torch.Generator")
+        if faults is not None and step_idx is None:
+            raise ValueError("faults need the step index (step_idx)")
         exact_f32_matmul()
         with torch.no_grad():
             loss, logits, grads, new_buffers = self._step_impl(
                 SimBackend() if backend is None else backend, topo, params,
-                buffers, data, generator, train=True)
+                buffers, data, generator, train=True, step_idx=step_idx,
+                faults=faults)
         return loss, grads, new_buffers, logits
 
     def forward(self, topo: Topology, params, data: ShardedData,

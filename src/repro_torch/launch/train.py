@@ -28,6 +28,7 @@ import os
 import socket
 
 from repro_torch.core.config import ModelConfig, PipeConfig
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.health import HealthConfig
 from repro_torch.core.trainer import train_pipegcn
 from repro_torch.data.graph_pipeline import GraphDataPipeline
@@ -38,9 +39,6 @@ from repro_torch.graph.synthetic import model_template
 # the ROADMAP Queue 1 item that ports them. Each is refused when given away
 # from its default.
 UNPORTED = {
-    9: ("fault tolerance",
-        ("guard_exchange", "max_staleness", "fault_rate", "fault_kind",
-         "fault_seed", "ckpt_dir", "ckpt_every", "ckpt_keep", "resume")),
     10: ("elastic runtime",
          ("elastic", "elastic_detect_after", "elastic_warm",
           "elastic_max_recoveries", "elastic_no_rejoin")),
@@ -129,14 +127,24 @@ def _run_gcn(args, log) -> dict:
     pc = dataclasses.replace(PipeConfig.named(args.variant, gamma=args.gamma),
                              fuse_exchange=not args.no_fuse_exchange,
                              overlap=args.overlap, wire=args.wire,
-                             slice_boundary=args.slice_boundary)
+                             slice_boundary=args.slice_boundary,
+                             guard_exchange=args.guard_exchange,
+                             max_staleness=args.max_staleness)
+    faults = None
+    if args.fault_rate > 0.0:
+        faults = FaultPlan(rate=args.fault_rate, rate_kind=args.fault_kind,
+                           seed=args.fault_seed)
     health = HealthConfig(enabled=False) if args.no_health else None
     res = train_pipegcn(pipeline, mc, pc, epochs=args.epochs,
                         lr=args.lr or tpl["lr"], seed=args.seed,
                         eval_every=args.eval_every, log=log,
                         health=health, device=args.device,
                         parts_per_device=(args.parts_per_device if args.spmd
-                                          else None))
+                                          else None),
+                        faults=faults, ckpt_dir=args.ckpt_dir,
+                        checkpoint_every=args.ckpt_every,
+                        resume=args.resume,
+                        checkpoint_keep=args.ckpt_keep or None)
     out = {"workload": "gcn", "dataset": args.dataset,
            "partitions": args.partitions, "variant": args.variant,
            "device": args.device, "agg": args.agg,
@@ -144,8 +152,15 @@ def _run_gcn(args, log) -> dict:
            "fuse_exchange": pc.fuse_exchange, "overlap": pc.overlap,
            "wire": pc.wire, "slice_boundary": pc.slice_boundary,
            "spmd": args.spmd, "parts_per_device": args.parts_per_device,
-           "anomalies": res.anomalies, "final": res.final_metrics,
+           "guard_exchange": pc.guard_exchange, "fault_rate": args.fault_rate,
+           "anomalies": res.anomalies, "resumed_from": res.resumed_from,
+           "preempted": res.preempted, "final": res.final_metrics,
            "epochs_per_sec": res.epochs_per_sec, "history": res.history}
+    if args.ckpt_dir and not args.ckpt_every and log:
+        # legacy params-only export; with --ckpt-every the trainer already
+        # wrote full-state step dirs into the same directory (rank 0 only)
+        from repro_torch.checkpoint import save_checkpoint
+        save_checkpoint(args.ckpt_dir, args.epochs, res.params)
     if log:
         log(json.dumps({k: out[k] for k in ("final", "epochs_per_sec")},
                        indent=1))
@@ -209,15 +224,30 @@ def parser() -> argparse.ArgumentParser:
                     help="layers that run transform-first with F_out <= "
                          "F_in ship the post-transform rows (incompatible "
                          "with --overlap split-phase)")
-    # Flags of the JAX launcher whose features are not ported yet (UNPORTED):
-    # accepted with the JAX names, types and defaults so that a JAX command
-    # line parses, then refused by unported_flags.
-    ap.add_argument("--guard-exchange", action="store_true")
-    ap.add_argument("--max-staleness", type=int, default=8)
-    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--guard-exchange", action="store_true",
+                    help="per-row checksum on every boundary wire; a row "
+                         "that fails keeps its stale buffer entry")
+    ap.add_argument("--max-staleness", type=int, default=8,
+                    help="abort once FIFO depth + consecutive fallbacks of "
+                         "an exchange exceeds this (with --guard-exchange)")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="i.i.d. fault rate per (step, direction, layer, "
+                         "partition pair) exchange")
     ap.add_argument("--fault-kind", default="drop",
                     choices=["drop", "corrupt", "delay"])
     ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (without --ckpt-every: a "
+                         "params-only export at the end)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint the full training state every N epochs")
+    ap.add_argument("--ckpt-keep", type=int, default=0,
+                    help="keep only the newest N checkpoints (0 = all)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
+    # Flags of the JAX launcher whose features are not ported yet (UNPORTED):
+    # accepted with the JAX names, types and defaults so that a JAX command
+    # line parses, then refused by unported_flags.
     ap.add_argument("--elastic", action="store_true")
     ap.add_argument("--elastic-detect-after", type=int, default=2)
     ap.add_argument("--elastic-warm", type=int, default=1)
@@ -228,10 +258,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--ckpt-keep", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
     return ap
 
 

@@ -7,6 +7,8 @@ pipeline buffer must agree to 1e-12 after each step. The JAX block-sparse
 engine runs its Pallas kernels in interpret mode, the port's on the plain
 PyTorch versions (CPU tensors).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,11 +180,15 @@ def test_stale_training_matches_dense_oracle():
 
 
 def test_unported_options_raise():
+    """Every PipeConfig option is ported now, so only an engine neither
+    package has raises; the guarded exchange (tests/test_torch_faults.py),
+    the split-phase schedule (tests/test_torch_overlap.py), the wire
+    codecs and feature slicing (tests/test_torch_slice.py) construct."""
     mc = ModelConfig(feat_dim=8, hidden=8, num_layers=2, num_classes=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        PipeGCN(mc, PipeConfig(guard_exchange=True))
-    # the split-phase schedule (tests/test_torch_overlap.py), the wire
-    # codecs and feature slicing (tests/test_torch_slice.py) are ported
+    with pytest.raises(KeyError, match="unknown aggregation engine"):
+        PipeGCN(dataclasses.replace(mc, agg="dense"), PipeConfig())
+    model = PipeGCN(mc, PipeConfig(guard_exchange=True))
+    assert model.wire_codecs(None)[0].name == "f32"
     PipeGCN(mc, PipeConfig(overlap="split-phase"))
     for pipe in (PipeConfig(wire="bf16"), PipeConfig(wire="auto"),
                  PipeConfig(compress_boundary=True),

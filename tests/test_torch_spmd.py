@@ -7,8 +7,10 @@ variants and schedules (unsplit and split-phase), and 2 epochs of
 `train_pipegcn` in float32. Every rank's loss, gradients, pipeline buffers
 and logits must equal the sim backend's bitwise: the SPMD reductions sum
 the per-partition terms in global partition order, as the sim backend
-does. The recorded schedule events must match the sim step's. The
-exchange helpers are checked against the JAX package's arrays.
+does. The recorded schedule events must match the sim step's. Under the
+guarded exchange, fault plans and checkpoints cross the backends
+bitwise. The exchange helpers are checked against the JAX package's
+arrays.
 """
 import os
 import subprocess
@@ -118,14 +120,101 @@ WORKER = textwrap.dedent('''
 ''')
 
 
-def _launch(tmp_path, world, n_local, configs=CONFIGS):
-    """Run WORKER on `world` ranks; fail (and kill them) on a hang."""
+# Faults and checkpoints across backends: 3 guarded steps under a drop plan
+# and under a corrupt plan (2-deep FIFO, so buffers carry the partition
+# axis second), 4 epochs of train_pipegcn under a background drop plan, and
+# checkpoints saved under one backend and resumed under the other.
+FAULT_WORKER = textwrap.dedent('''
+    import sys
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank, world, n_local = (int(a) for a in sys.argv[1:4])
+    store, out = sys.argv[4:6]
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core import ModelConfig, PipeConfig, PipeGCN, train_pipegcn
+    from repro_torch.core.faults import FaultPlan, FaultSite
+    from repro_torch.core.pipegcn import SimBackend, SpmdBackend
+    from repro_torch.data import GraphDataPipeline
+    from repro_torch.data.graph_pipeline import rank_view
+
+    P = world * n_local
+    tp = GraphDataPipeline.build("grid-tiny", P, agg="blocksparse",
+                                 device="cpu")
+    topo = tp.topo.to(torch.float64)
+    data = tp.train_data._replace(x=tp.train_data.x.to(torch.float64))
+    ds = tp.dataset
+    mc = ModelConfig(feat_dim=ds.feat_dim, hidden=16, num_layers=3,
+                     num_classes=ds.num_classes, dropout=0.0,
+                     agg="blocksparse")
+    pc = PipeConfig(guard_exchange=True, staleness_steps=2)
+    model = PipeGCN(mc, pc, split=tp.split_spec())
+    plans = {"drop": FaultPlan(sites=(
+                 FaultSite(0, 1, 0, 3), FaultSite(1, 2, 2, 1, "bwd"),
+                 FaultSite(1, 1, 3, 0, "bwd")), rate=0.1, seed=2),
+             "corrupt": FaultPlan(rate=0.3, rate_kind="corrupt", seed=4,
+                                  density=0.3)}
+
+    def run(backend, topo, data, tables):
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   dtype=torch.float64)
+        bufs = model.init_buffers(topo, dtype=torch.float64)
+        steps = []
+        for t in range(3):
+            loss, grads, bufs, logits = model.train_step(
+                topo, params, bufs, data, backend=backend, step_idx=t,
+                faults=tables)
+            steps.append((loss, grads, bufs, logits))
+            params = {k: params[k] - 0.05 * grads[k] for k in params}
+        return steps
+
+    res = {}
+    for name, plan in plans.items():
+        tab = plan.compile(3, 3, P)
+        res[name] = run(SpmdBackend(n_local), rank_view(topo, rank, n_local),
+                        rank_view(data, rank, n_local), tab)
+        if rank == 0:
+            res["sim", name] = run(SimBackend(), topo, data, tab)
+    kw = dict(eval_every=1, device="cpu")
+    mc32 = ModelConfig(feat_dim=ds.feat_dim, hidden=16, num_layers=3,
+                       num_classes=ds.num_classes, dropout=0.0,
+                       agg="blocksparse")
+    plan = FaultPlan(rate=0.2, seed=1)
+    spmd = train_pipegcn(tp, mc32, pc, epochs=4, faults=plan,
+                         parts_per_device=n_local, **kw)
+    res["train"] = (spmd.history, spmd.anomalies)
+    # spmd checkpoint at epoch 2, resumed on sim; sim checkpoint, resumed
+    # under spmd
+    train_pipegcn(tp, mc32, pc, epochs=2, faults=plan, ckpt_dir=out + "/a",
+                  checkpoint_every=2, parts_per_device=n_local, **kw)
+    if rank == 0:
+        sim = train_pipegcn(tp, mc32, pc, epochs=4, faults=plan, **kw)
+        res["sim", "train"] = (sim.history, sim.anomalies)
+        res["sim", "params"] = sim.params
+        res["sim from spmd"] = train_pipegcn(
+            tp, mc32, pc, epochs=4, faults=plan, ckpt_dir=out + "/a",
+            resume=True, **kw).params
+        train_pipegcn(tp, mc32, pc, epochs=2, faults=plan,
+                      ckpt_dir=out + "/b", checkpoint_every=2, **kw)
+    dist.barrier()
+    res["spmd from sim"] = train_pipegcn(
+        tp, mc32, pc, epochs=4, faults=plan, ckpt_dir=out + "/b",
+        resume=True, parts_per_device=n_local, **kw).params
+    torch.save(res, f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+''')
+
+
+def _launch(tmp_path, world, n_local, configs=CONFIGS, worker=WORKER):
+    """Run `worker` on `world` ranks; fail (and kill them) on a hang."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
                                            os.environ.get("PYTHONPATH", "")]))
     store = str(tmp_path / "rendezvous")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(rank), str(world), str(n_local),
+        [sys.executable, "-c", worker, str(rank), str(world), str(n_local),
          store, str(tmp_path), repr(configs)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]
@@ -200,6 +289,38 @@ def test_gloo_spmd_equals_sim_under_wire_codecs(tmp_path, world, n_local):
     and split: SPMD equals sim bitwise."""
     ranks = _launch(tmp_path, world, n_local, WIRE_CONFIGS)
     _assert_ranks_equal_sim(ranks, WIRE_CONFIGS, world, n_local)
+
+
+def test_gloo_spmd_equals_sim_under_faults_and_checkpoints(tmp_path):
+    """World 2 with 2 partitions per rank, guarded, 2-deep FIFO: 3 steps
+    under a drop plan and under a corrupt plan equal sim bitwise ("es"
+    included); train_pipegcn under a drop plan gives sim's history and
+    anomalies; a checkpoint saved under SPMD resumes on sim, and one saved
+    on sim resumes under SPMD, bitwise to the uninterrupted sim run."""
+    world, n_local = 2, 2
+    ranks = _launch(tmp_path, world, n_local, worker=FAULT_WORKER)
+    sim = ranks[0]
+    for rank, res in enumerate(ranks):
+        for name in ("drop", "corrupt"):
+            sim_steps = sim["sim", name]
+            for t, (loss, grads, bufs, logits) in enumerate(res[name]):
+                what = f"{name} rank {rank} step {t}"
+                _assert_equal(loss, sim_steps[t][0], what)
+                _assert_equal(grads, sim_steps[t][1], what)
+                want = {k: (tuple(rank_view(x, rank, n_local,
+                                            axis=0 if k == "es" else 1)
+                                  for x in v) if isinstance(v, tuple)
+                            else rank_view(v, rank, n_local))
+                        for k, v in sim_steps[t][2].items()}
+                _assert_equal(bufs, want, what)
+                _assert_equal(logits, rank_view(sim_steps[t][3], rank,
+                                                n_local), what)
+            assert any(bool((s[2]["es"] > 0).any()) for s in sim_steps), name
+        _assert_equal(res["train"], sim["sim", "train"], f"train {rank}")
+        assert res["train"][1]["exchange_fallbacks"] > 0
+        _assert_equal(res["spmd from sim"], sim["sim", "params"],
+                      f"spmd from sim {rank}")
+    _assert_equal(sim["sim from spmd"], sim["sim", "params"], "sim from spmd")
 
 
 @pytest.mark.parametrize("n_dev,n_local", [(1, 4), (2, 2), (4, 1), (2, 3)])

@@ -3,6 +3,7 @@ the health guard's rollback, and the command line on the CPU."""
 import ast
 import json
 import math
+import os
 import re
 from pathlib import Path
 
@@ -175,10 +176,6 @@ def _jax_launcher_flags() -> dict:
 
 # (flag, value or None for a store_true flag, ROADMAP Queue 1 item)
 UNPORTED_CASES = [
-    ("--guard-exchange", None, 9), ("--max-staleness", "4", 9),
-    ("--fault-rate", "0.1", 9), ("--fault-kind", "corrupt", 9),
-    ("--fault-seed", "3", 9), ("--ckpt-dir", "ckpts", 9),
-    ("--ckpt-every", "2", 9), ("--ckpt-keep", "2", 9), ("--resume", None, 9),
     ("--elastic", None, 10), ("--elastic-detect-after", "3", 10),
     ("--elastic-warm", "0", 10), ("--elastic-max-recoveries", "1", 10),
     ("--elastic-no-rejoin", None, 10),
@@ -215,6 +212,71 @@ def test_cli_refuses_unported_flags(capsys, flag, value, item):
     assert "not ported" in msg and flag in msg
     assert f"ROADMAP Queue 1 item {item}:" in msg
     assert msg.count("item ") == 1
+
+
+# (flag, its value or None for a store_true flag, the flags it needs): the
+# item 9 flags, each run on tiny with what makes it act
+ITEM9_CASES = [
+    ("--guard-exchange", None, []),
+    ("--max-staleness", "4", ["--guard-exchange", "--fault-rate", "0.3"]),
+    ("--fault-rate", "0.3", ["--guard-exchange"]),
+    ("--fault-kind", "corrupt", ["--guard-exchange", "--fault-rate", "0.3"]),
+    ("--fault-seed", "3", ["--guard-exchange", "--fault-rate", "0.3"]),
+    ("--ckpt-dir", "CKPT", []),
+    ("--ckpt-every", "1", ["--ckpt-dir", "CKPT"]),
+    ("--ckpt-keep", "1", ["--ckpt-dir", "CKPT", "--ckpt-every", "1"]),
+    ("--resume", None, ["--ckpt-dir", "CKPT"]),
+]
+
+
+@pytest.mark.parametrize("flag,value,extra", ITEM9_CASES)
+def test_cli_runs_item9_flags(capsys, tmp_path, flag, value, extra):
+    """Each fault-tolerance flag trains 2 epochs of tiny on the CPU and
+    drives its field of the final JSON (or its checkpoint files)."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.graph.synthetic import model_template
+    ckpt = str(tmp_path / "ckpt")
+    argv = [flag] + ([value] if value is not None else []) + extra
+    argv = [ckpt if a == "CKPT" else a for a in argv]
+    base = ["--device", "cpu", "--dataset", "tiny", "--epochs", "2",
+            "--eval-every", "1"]
+    if flag == "--resume":
+        main(base[:-4] + ["--epochs", "1", "--ckpt-dir", ckpt,
+                          "--ckpt-every", "1"])
+        capsys.readouterr()
+    out = main(base + argv)
+    printed = capsys.readouterr().out
+    assert all(math.isfinite(v) for v in out["history"]["loss"])
+    assert out["guard_exchange"] == ("--guard-exchange" in argv)
+    rate = float(argv[argv.index("--fault-rate") + 1]) \
+        if "--fault-rate" in argv else 0.0
+    assert out["fault_rate"] == rate
+    assert not out["preempted"]
+    if out["guard_exchange"]:
+        assert out["anomalies"]["exchange_fallbacks"] >= (rate > 0)
+    if rate:
+        seed = int(value) if flag == "--fault-seed" else 0
+        layers = model_template("tiny")["num_layers"]
+        n = FaultPlan(rate=rate, seed=seed).compile(2, layers, 4).drop_np.sum()
+        assert f"fault injection: {n} faulted exchange sites" in printed
+    if flag == "--max-staleness":
+        es = out["anomalies"]["max_effective_staleness"]
+        assert f"es {es}/4" in printed and es <= 4
+    if flag == "--fault-kind":
+        assert out["anomalies"]["exchange_fallbacks"] > 0
+    if flag == "--ckpt-dir":           # the params-only export
+        assert latest_step(ckpt) == 2
+    if flag == "--ckpt-every":
+        assert sorted(os.listdir(ckpt)) == ["step_00000001",
+                                            "step_00000002"]
+    if flag == "--ckpt-keep":
+        assert os.listdir(ckpt) == ["step_00000002"]
+    if flag == "--resume":
+        assert out["resumed_from"] == 1
+        assert out["history"]["epoch"] == [1]
+    else:
+        assert out["resumed_from"] is None
 
 
 def test_cli_runs_a_jax_command_line_at_defaults(capsys):
