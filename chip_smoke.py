@@ -181,6 +181,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
                and restore ms;
              - step times: guarded vs unguarded reddit-sim step in turns
                (g, u, u, g), medians of 20, with one profiled step each.
+  7c. elastic the elastic runtime (device-loss detection, survivor remap,
+             warm recovery, rejoin) on reddit-sim P = 4 at full width,
+             guarded, max_staleness 8, losing device 1 (3 survivors × 2
+             partitions, 2 pads); every line carries the card's name and
+             power limit:
+             - kernels: spmm / spmm_t F = 256, spmm_fused 128→256 (z,
+               ReLU) and spmm_fused_t 256←256 on the padded layout, into
+               NaN-poisoned outputs: vs plain (1e-5; fused to scale), every
+               row written, pad rows 0 (u: ReLU(b)), the pads' halo rows
+               of δcomb 0, every workspace counter 0 after the launch;
+               timed beside the original layout's launch;
+             - drills: device 1 down at step 5, checkpoint every 4, 8
+               epochs, under blocksparse/auto and fused/aggregate-first:
+               one recovery, exact launches on both layouts, the
+               device_losses of the COO engine in float64 on the card,
+               recovery bitwise equal to a fresh survivor-layout launch
+               from a copy of the checkpoint, and the wall time from
+               detection to the first resumed step (restore, remap,
+               schedule rebuild, first step); a rejoin drill (device 2
+               down for [3, 5), 10 epochs) with exact launches;
+             - steps: 2 padded guarded steps (exact launches, finite
+               buffers, pads' es 0), the survivor-layout step against the
+               original's in turns (medians of 20) with one profiled step
+               each, exchanges per step and the buffers' bytes.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -2146,6 +2170,432 @@ def phase_faults(reddit):
     return out
 
 
+# ---------------------------------------------------------------------
+# Phase "elastic": device loss, survivor remap, warm recovery and rejoin
+# on the card
+# ---------------------------------------------------------------------
+
+ELASTIC_SURVIVORS = (0, 2, 3)   # device 1 of 4 lost: 3 survivors × 2, 2 pads
+ELASTIC_EVERY = 4               # checkpoint every 4 epochs
+ELASTIC_EPOCHS = 8
+
+
+def _elastic_setup(reddit, agg="blocksparse", order="auto"):
+    """reddit-sim's published model, the guarded pipegcn pipe
+    (max_staleness 8), the plan losing device 1, and the model."""
+    import dataclasses
+    from repro_torch.core import ElasticPlan, PipeConfig, PipeGCN
+    mc, lr = _model_config(reddit, agg, order)
+    pipe = dataclasses.replace(PipeConfig.named("pipegcn"),
+                               guard_exchange=True, max_staleness=8)
+    plan = ElasticPlan(reddit.topo.num_parts, reddit.topo.num_parts,
+                       ELASTIC_SURVIVORS)
+    return mc, pipe, lr, plan, PipeGCN(mc, pipe, split=reddit.split_spec())
+
+
+def _poison(numel: int) -> int:
+    """Fill and free a NaN block the size of the next output and return
+    its address: the caching allocator hands the block to the kernel's
+    torch.empty output (the caller checks the address), so a row the
+    kernel leaves unwritten reads NaN."""
+    import torch
+    return torch.full((numel,), float("nan"), device="cuda").data_ptr()
+
+
+def _counters_clear() -> bool:
+    """Every arrival, run and pass counter and the fused ticket are 0."""
+    import torch
+    from repro_torch.kernels import gcn_spmm
+    ctr = gcn_spmm._WORKSPACE.get((torch.device("cuda", 0), torch.int32))
+    return ctr is not None and not bool(ctr.any())
+
+
+def _elastic_kernel_calls(topo, gen):
+    """name -> (kernel call, plain call, output numel) at reddit-sim's
+    main-path shapes: spmm / spmm_t F = 256, spmm_fused 128→256 with z and
+    ReLU, spmm_fused_t 256←256; plus the fused call's bias and h."""
+    import torch
+    from repro_torch.kernels import gcn_spmm
+    n, R = topo.num_parts, topo.max_inner
+    C = R + topo.halo_size
+    h = torch.randn(n, C, 256, device="cuda", generator=gen)
+    h128 = torch.randn(n, C, 128, device="cuda", generator=gen)
+    dz = torch.randn(n, R, 256, device="cuda", generator=gen)
+    w1 = torch.randn(128, 256, device="cuda", generator=gen) * 0.1
+    w2 = torch.randn(256, 256, device="cuda", generator=gen) * 0.1
+    b = torch.randn(256, device="cuda", generator=gen)
+    fwd = (topo.tile_work, topo.tile_items, topo.tile_rows, topo.tile_cols,
+           topo.tile_vals)
+    bwd = (topo.tile_t_work, topo.tile_t_items, topo.tile_t_out,
+           topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
+    calls = {
+        "spmm": (lambda: gcn_spmm.spmm(*fwd, h, R),
+                 lambda: gcn_spmm.spmm_plain(*fwd[2:], h, R), n * R * 256),
+        "spmm_t": (lambda: gcn_spmm.spmm_t(*bwd, dz, C),
+                   lambda: gcn_spmm.spmm_t_plain(*bwd[2:], dz, C),
+                   n * C * 256),
+        "spmm_fused": (
+            lambda: gcn_spmm.spmm_fused(*fwd, h128, w1, b, R, relu=True),
+            lambda: gcn_spmm.spmm_fused_plain(*fwd[2:], h128, w1, b, R,
+                                              relu=True), n * R * 256),
+        "spmm_fused_t": (
+            lambda: gcn_spmm.spmm_fused_t(*bwd, dz, w2, C),
+            lambda: gcn_spmm.spmm_fused_t_plain(*bwd[2:], dz, w2, C),
+            n * C * 256)}
+    z_of = lambda: gcn_spmm.spmm(*fwd, h128, R)   # noqa: E731
+    return calls, b, z_of
+
+
+def _elastic_kernels(reddit, card):
+    """The four kernels of the padded survivor layout at reddit-sim's
+    main-path shapes, each into a NaN-poisoned output: held against its
+    plain version (spmm pair rtol = atol = 1e-5; fused pair
+    gcn_spmm.assert_close_to_scale), every row finite, pad rows exact
+    (z and δcomb 0, u ReLU(b)), the pads' halo rows of δcomb 0, the fused
+    z bit-equal to spmm's, every workspace counter 0 after the launch;
+    timed beside the same kernel on the original layout."""
+    import torch
+    from repro_torch.core.elastic import remap_topology
+    from repro_torch.kernels import gcn_spmm
+    *_, plan, _ = _elastic_setup(reddit)
+    topo = remap_topology(reddit.topo, plan)
+    P, R = plan.num_parts, topo.max_inner
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    padded, b, z_of = _elastic_kernel_calls(topo, gen)
+    flat, _, _ = _elastic_kernel_calls(reddit.topo, gen)
+    rows = []
+    for name, (kern, plain, numel) in padded.items():
+        kern()                  # sizes the workspaces
+        poisoned = _poison(numel)
+        got = kern()
+        torch.cuda.synchronize()
+        out = got[0] if name == "spmm_fused" else got
+        assert out.data_ptr() == poisoned, f"elastic {name}: not poisoned"
+        assert _counters_clear(), f"elastic {name}: a counter left nonzero"
+        want = plain()
+        if name == "spmm_fused":
+            assert torch.equal(got[1], z_of()), "elastic spmm_fused z"
+            got, want = got[0], want[0]
+        if name.startswith("spmm_fused"):
+            err = gcn_spmm.assert_close_to_scale(got, want, f"elastic {name}")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            err = float((got - want).abs().max())
+        assert torch.isfinite(got).all(), f"elastic {name}: unwritten rows"
+        if name == "spmm_fused":
+            assert torch.equal(got[P:], torch.relu(b).expand_as(got[P:]))
+        else:
+            assert not got[P:].any(), f"elastic {name}: pad rows"
+        if name in ("spmm_t", "spmm_fused_t"):
+            assert not got[:, R + P * topo.slot:].any(), \
+                f"elastic {name}: the pads' halo rows"
+        ms, ms_orig = _timed_pair(kern, flat[name][0])
+        items = topo.tile_t_items if name.endswith("_t") else topo.tile_items
+        rows.append(dict(name=name, max_abs_err=err, ms=ms,
+                         ms_original_layout=ms_orig,
+                         items=int((items[..., 0] >= 0).sum())))
+    log(f"elastic kernels [{card}]: reddit-sim padded survivor layout "
+        f"({topo.num_parts} partitions, {topo.num_parts - P} pads, survivors "
+        f"{list(ELASTIC_SURVIVORS)}): every row written into NaN-poisoned "
+        f"outputs, pads 0 / ReLU(b), counters 0: {json.dumps(rows)}")
+    return rows
+
+
+def _elastic_reference(reddit, faults, epochs, every, detect_after):
+    """The device loss the COO engine in float64 on the card detects under
+    `faults` (guarded steps, plain SGD between them): device, detection
+    epoch, the checkpoint a trainer checkpointing every `every` epochs
+    restores, and the survivors."""
+    import torch
+    from repro_torch.core.elastic import detect_device_loss
+    model, _ = split_model(reddit, "coo", dropout=0.0, guard_exchange=True,
+                           max_staleness=8)
+    P = reddit.topo.num_parts
+    tables = faults.compile(epochs, model.model.num_layers, P, device="cuda")
+    topo, data = reddit.topo.to(torch.float64), _float64(reddit.train_data)
+    params = {k: v.double() for k, v in model.init_params(
+        torch.Generator(device="cuda").manual_seed(0)).items()}
+    bufs = model.init_buffers(topo, dtype=torch.float64)
+    for t in range(epochs):
+        _, grads, bufs, _ = model.train_step(topo, params, bufs, data,
+                                             step_idx=t, faults=tables)
+        down = detect_device_loss(bufs["es"], 1, P, detect_after)
+        if down is not None:
+            return {"device": down, "detected_epoch": t,
+                    "resumed_from": t // every * every,
+                    "survivors": [d for d in range(P) if d != down]}
+        params = {k: params[k] - 0.01 * grads[k] for k in params}
+    return None
+
+
+def _segments_launches(model, layouts, epochs, eval_at) -> dict:
+    """Launches of a run whose steps ran on several layouts: `layouts` is
+    [(topo, first epoch, end epoch)] in run order (replayed epochs
+    counted again); evals at epochs `eval_at` on the layout in force."""
+    total = dict.fromkeys(KERNELS, 0)
+    for topo, lo, hi in layouts:
+        evals = sum(lo <= e < hi for e in eval_at)
+        for k, v in expected_launches(model, topo, hi - lo, evals).items():
+            total[k] += v
+    return total
+
+
+def _elastic_run(reddit, agg, order, root, faults=None, plan=None,
+                 resume=False, rejoin=False, epochs=ELASTIC_EPOCHS,
+                 marks=None):
+    """train_pipegcn on reddit-sim under the elastic runtime, with the
+    launch counts zeroed just before and read just after."""
+    from repro_torch.core import ElasticConfig, train_pipegcn
+    mc, pipe, lr, _, _ = _elastic_setup(reddit, agg, order)
+
+    def note(line):
+        if marks is not None and line.startswith("device "):
+            marks["remapped"] = time.perf_counter()
+        log(f"elastic {agg}/{order}: {line}")
+
+    reset_launches()
+    res = train_pipegcn(reddit, mc, pipe, epochs=epochs, lr=lr, seed=0,
+                        eval_every=EVAL_EVERY, device="cuda", faults=faults,
+                        elastic=ElasticConfig(parts_per_device=1,
+                                              rejoin=rejoin),
+                        elastic_plan=plan, ckpt_dir=root,
+                        checkpoint_every=ELASTIC_EVERY, resume=resume,
+                        log=note)
+    return res, read_launches()
+
+
+def _recovery_marks():
+    """Wrap the trainer's loss detector and step builder so that a run
+    stamps when the loss is detected and when the first step after it
+    ends (device synced). Returns (marks, undo)."""
+    import torch
+    from repro_torch.core import elastic, trainer
+    marks = {}
+    detect, make = elastic.detect_device_loss, trainer.make_train_step
+
+    def detect_stamped(*a, **kw):
+        down = detect(*a, **kw)
+        if down is not None:
+            marks.setdefault("detected", time.perf_counter())
+        return down
+
+    def make_stamped(*a, **kw):
+        inner = make(*a, **kw)
+
+        def step(*sa):
+            out = inner(*sa)
+            if "remapped" in marks and "first_step" not in marks:
+                torch.cuda.synchronize()
+                marks["first_step"] = time.perf_counter()
+            return out
+        return step
+
+    elastic.detect_device_loss = detect_stamped
+    trainer.make_train_step = make_stamped
+
+    def undo():
+        elastic.detect_device_loss = detect
+        trainer.make_train_step = make
+    return marks, undo
+
+
+def _elastic_drills(reddit, card, root):
+    """The drill (device 1 down at step 5, checkpoint every 4, 8 epochs)
+    under blocksparse/auto and fused/aggregate-first with exact launches
+    on both layouts; its device_losses equal the f64 COO run's; each
+    recovery bitwise equal to a fresh survivor-layout launch from a copy
+    of the same checkpoint; the wall time from detection to the first
+    resumed step; then a rejoin drill (device 2 down for [3, 5), 10
+    epochs)."""
+    import shutil
+    import torch
+    from repro_torch.core import FaultPlan, device_down_site
+    from repro_torch.core.elastic import remap_topology
+    faults = FaultPlan(sites=(device_down_site(step=5, device=1),))
+    runs, out = {}, {}
+    for agg, order in (("blocksparse", "auto"), ("fused", "aggregate-first")):
+        mc, pipe, _, plan, model = _elastic_setup(reddit, agg, order)
+        topo_pad = remap_topology(reddit.topo, plan)
+        d_a, d_b = (os.path.join(root, f"{agg}_{x}") for x in "ab")
+        marks, undo = _recovery_marks()
+        try:
+            res, launches = _elastic_run(reddit, agg, order, d_a, faults,
+                                         marks=marks)
+        finally:
+            undo()
+        loss = res.anomalies["device_losses"]
+        assert res.recoveries == 1 and len(loss) == 1, res.anomalies
+        det, frm = loss[0]["detected_epoch"], loss[0]["resumed_from"]
+        expect = _segments_launches(
+            model, [(reddit.topo, 0, det + 1), (topo_pad, frm,
+                                                ELASTIC_EPOCHS)],
+            ELASTIC_EPOCHS, (0, ELASTIC_EPOCHS - 1))
+        assert launches == expect, (agg, launches, expect)
+        assert all(math.isfinite(v) for v in res.history["loss"])
+        name = f"step_{frm:08d}"
+        os.makedirs(d_b)
+        shutil.copytree(os.path.join(d_a, name), os.path.join(d_b, name))
+        fresh, _ = _elastic_run(reddit, agg, order, d_b, plan=plan,
+                                resume=True)
+        for k in res.params:
+            assert torch.equal(res.params[k], fresh.params[k]), (agg, k)
+        n = len(fresh.history["epoch"])
+        assert res.history["loss"][-n:] == fresh.history["loss"], agg
+        runs["reddit-sim P=4 elastic drill", agg, order] = dict(
+            launches=launches)
+        out[agg] = dict(device_losses=loss, launches=launches,
+                        loss=res.history["loss"][-1],
+                        val=res.final_metrics["val"],
+                        bitwise_vs_fresh_launch=True,
+                        detect_to_remapped_s=marks["remapped"]
+                        - marks["detected"],
+                        remapped_to_first_step_s=marks["first_step"]
+                        - marks["remapped"],
+                        detect_to_first_step_s=marks["first_step"]
+                        - marks["detected"])
+        log(f"elastic drill [{card}]: reddit-sim P=4 {agg}/{order}, device 1 "
+            f"down at step 5: {json.dumps(out[agg])}")
+    ref = _elastic_reference(reddit, faults, ELASTIC_EPOCHS, ELASTIC_EVERY, 2)
+    for agg in out:
+        assert out[agg]["device_losses"] == [ref], (agg, ref)
+    loss = ref
+    log(f"elastic drill [{card}]: device_losses == the COO float64 run's "
+        f"on the card {json.dumps(ref)}; detection epoch "
+        f"{loss['detected_epoch']}, replay window "
+        f"{loss['detected_epoch'] - loss['resumed_from']} epochs")
+
+    # rejoin: device 2 down for steps [3, 5)
+    mc, pipe, _, plan, model = _elastic_setup(reddit)
+    faults = FaultPlan(sites=(device_down_site(step=3, device=2, until=5),))
+    res, launches = _elastic_run(reddit, "blocksparse", "auto",
+                                 os.path.join(root, "rejoin"), faults,
+                                 rejoin=True, epochs=10)
+    assert res.recoveries == 1 and res.anomalies["rejoins"] == 1, \
+        res.anomalies
+    loss = res.anomalies["device_losses"][0]
+    det, frm = loss["detected_epoch"], loss["resumed_from"]
+    back = next(s for s in range(frm + ELASTIC_EVERY, 11, ELASTIC_EVERY)
+                if s >= 5)
+    plan2 = type(plan)(4, 4, loss["survivors"])
+    expect = _segments_launches(
+        model, [(reddit.topo, 0, det + 1),
+                (remap_topology(reddit.topo, plan2), frm, back),
+                (reddit.topo, back, 10)], 10, (0, 9))
+    assert launches == expect, ("rejoin", launches, expect)
+    runs["reddit-sim P=4 elastic rejoin", "blocksparse", "auto"] = dict(
+        launches=launches)
+    out["rejoin"] = dict(device_losses=[loss], rejoins=1, rejoined_at=back,
+                         launches=launches, loss=res.history["loss"][-1],
+                         val=res.final_metrics["val"])
+    log(f"elastic rejoin [{card}]: reddit-sim P=4 blocksparse/auto, device "
+        f"2 down for steps [3, 5): {json.dumps(out['rejoin'])}")
+    return out, runs
+
+
+def _elastic_steps(reddit, card):
+    """The padded layout's guarded step (blocksparse/auto): 2 steps at
+    dropout 0 from warm-marked remapped zero buffers with exact launches,
+    every buffer
+    finite, the pads' es 0 and their logits rows one finite row; then the
+    survivor-layout step against the original layout's in turns (o, s, s,
+    o; medians of 20), one profiled step each for device launches and
+    busy, the exchanges per padded step (RecordingBackend), and the
+    buffers' bytes on both layouts."""
+    import torch
+    from repro_torch.core import HealthConfig, make_train_step
+    from repro_torch.core.elastic import (remap_buffers, remap_data,
+                                          remap_topology, warm_mark)
+    from repro_torch.core.pipegcn import SimBackend
+    from repro_torch.core.trace_utils import RecordingBackend
+    from repro_torch.optim import adam
+    import dataclasses
+    from repro_torch.core import PipeGCN
+    mc, pipe, lr, plan, model = _elastic_setup(reddit)
+    P = plan.num_parts
+    topo = remap_topology(reddit.topo, plan)
+    data = remap_data(reddit.train_data, plan)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    flat = model.init_buffers(reddit.topo)
+    bufs = warm_mark(remap_buffers(flat, plan), plan.moved_partitions(), 1, P)
+    # dropout 0: every pad row then sees the same (zero) inputs
+    model0 = PipeGCN(dataclasses.replace(mc, dropout=0.0), pipe)
+    reset_launches()
+    rec = RecordingBackend(SimBackend())
+    b = bufs
+    for _ in range(2):
+        loss, grads, b, logits = model0.train_step(topo, params, b, data,
+                                                   backend=rec)
+    launches = read_launches()
+    assert launches == expected_launches(model0, topo, 2, 0), launches
+    for x in _leaves(b):
+        if x.is_floating_point():
+            assert torch.isfinite(x).all(), "padded step: non-finite buffer"
+    es = b["es"]
+    assert not es[P:].any() and not es[..., P:].any(), "pads' es"
+    pad = logits[P:].reshape(-1, logits.shape[-1])
+    assert torch.isfinite(pad).all() and torch.equal(
+        pad, pad[:1].expand_as(pad)), "pad logits rows"
+    exchanges = rec.events.count("exchange") // 2
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+    opt = adam(lr)
+    state = {}
+    for name, t, d, bb in (("original", reddit.topo, reddit.train_data,
+                            flat), ("survivor", topo, data, bufs)):
+        inner = make_train_step(model, opt, HealthConfig())
+
+        def step(*a, inner=inner):
+            out = inner(*a)
+            out[3]["es"].cpu()      # the trainer's staleness check
+            return out
+
+        state[name] = (step, [t, params, opt.init(params), bb, d,
+                              torch.Generator(device="cuda").manual_seed(1)])
+        _timed_steps(*state[name], 2)
+    times = {"original": [], "survivor": []}
+    for name in ("original", "survivor", "survivor", "original"):
+        times[name] += _timed_steps(*state[name], 10)
+    prof = {n: _device_launches(*state[n]) for n in times}
+    out = {}
+    for name, ts in times.items():
+        q = sorted(ts)
+        out[name] = dict(median=(q[9] + q[10]) / 2, q1=q[4], q3=q[14],
+                         max=q[-1], device_launches=prof[name][0],
+                         device_busy_ms=prof[name][1])
+    out["survivor_over_original"] = (out["survivor"]["median"]
+                                     / out["original"]["median"])
+    out["buffer_bytes"] = dict(original=nbytes(flat), survivor=nbytes(bufs))
+    out["exchanges_per_step"] = exchanges
+    out["padded_step_launches"] = launches
+    log(f"elastic steps [{card}]: reddit-sim P=4 blocksparse/auto guarded "
+        f"train step ms, original vs survivor layout (20 steps each, in "
+        f"turns o, s, s, o; pads es 0, exact launches): {json.dumps(out)}")
+    return out
+
+
+def phase_elastic(reddit):
+    """The elastic runtime on the card: the padded layout's kernels, the
+    drills (exact launches, f64 COO device losses, recovery == fresh
+    survivor launch bitwise, recovery wall time, rejoin), the padded step
+    and its time against the original layout's. Returns the drills' runs
+    for the kernels line's launch counts."""
+    import shutil
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    root = os.path.join(ROOT, "build", "chip_smoke_elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        kernels = _elastic_kernels(reddit, card)
+        drills, runs = _elastic_drills(reddit, card, root)
+        steps = _elastic_steps(reddit, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"elastic: phase took {time.perf_counter() - t0:.1f} s")
+    return dict(kernels=kernels, drills=drills, steps=steps), runs
+
+
 def phase_exchange(split_pipes, runs):
     """The boundary exchange of the split step on the sim backend (the
     counterpart of the TPU's start_boundary_rdma): the packed forward
@@ -2549,6 +2999,7 @@ def main(argv) -> int:
     phase_split_step_times(split_pipes)
     phase_wire(reddit, yelp, split_pipes, runs)
     phase_faults(reddit)
+    runs.update(phase_elastic(reddit)[1])
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

@@ -1,6 +1,8 @@
 """PipeGCN core: configuration, the partition-parallel step, fault
-injection, health guards and the trainer."""
+injection, health guards, the elastic runtime and the trainer."""
 from repro_torch.core.config import ModelConfig, PipeConfig
+from repro_torch.core.elastic import (DeviceLossError, ElasticConfig,
+                                      ElasticPlan)
 from repro_torch.core.faults import (FaultPlan, FaultSite,
                                      StalenessExceededError,
                                      device_down_site)
@@ -14,6 +16,7 @@ from repro_torch.device import resolve_device
 __all__ = [
     "ModelConfig", "PipeConfig", "HealthConfig", "TrainingAnomalyError",
     "FaultPlan", "FaultSite", "StalenessExceededError", "device_down_site",
+    "DeviceLossError", "ElasticConfig", "ElasticPlan",
     "PipeGCN", "ShardedData", "Topology", "params_from_jax", "resolve_device",
     "shard_data", "topology_from", "TrainResult", "make_train_step",
     "train_pipegcn",

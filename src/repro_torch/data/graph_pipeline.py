@@ -126,10 +126,33 @@ class GraphDataPipeline:
         "natural"). Memoized with the tile extraction on `pg`."""
         return split_spec_from(self.pg)
 
+    def device_layout(self, num_devices: int):
+        """Explicit (n_dev, n_local, ...) per-device view of (topo,
+        train_data) for num_devices hosts: the layout the SPMD backend's
+        rank views cut from the flat partition axis."""
+        if self.topo.num_parts % num_devices:
+            raise ValueError(
+                f"num_parts={self.topo.num_parts} is not a multiple of "
+                f"num_devices={num_devices}")
+        n_local = self.topo.num_parts // num_devices
+        return (to_local_layout(self.topo, n_local),
+                to_local_layout(self.train_data, n_local))
+
+    def elastic_views(self, plan):
+        """Remapped (topo, train_data, val_data) for a
+        `repro_torch.core.elastic.ElasticPlan`: the padded survivor layout
+        of this pipeline's tensors (pads appended and masked out; the
+        partitioned graph is not rebuilt)."""
+        from repro_torch.core.elastic import remap_data, remap_topology
+        return (remap_topology(self.topo, plan),
+                remap_data(self.train_data, plan),
+                remap_data(self.val_data, plan))
+
     def metric(self, logits_packed) -> dict:
         """Global accuracy (single-label) or F1-micro (multilabel) on
         train/val/test splits, from packed (P, max_inner, C) logits."""
         ds = self.dataset
+        # [:num_parts] drops the pad partitions of an elastic survivor layout
         logits = self.pg.unpack_nodes(
             logits_packed.detach().cpu().numpy()[:self.pg.num_parts])
         out = {}

@@ -9,6 +9,14 @@ runs the plain PyTorch versions of the kernels). A flag of a feature the
 port does not run yet, given away from its default, exits with an error
 that names its ROADMAP item (`UNPORTED`).
 
+``--elastic`` (with ``--guard-exchange`` and a checkpoint directory)
+arms the elastic runtime: a device whose exchanges all fall back
+``--elastic-detect-after`` consecutive steps is declared lost, its
+partitions are remapped onto the survivors from the last checkpoint, and
+the run rejoins at a checkpoint boundary once the device is back.
+Without ``--spmd``, ``--parts-per-device`` sets how many partitions one
+device of the sim backend holds for it, as in the JAX launcher.
+
 ``--spmd --parts-per-device N`` trains on the torch.distributed backend,
 one process per rank, each holding N partitions (``--partitions`` = ranks
 × N). Start it with torchrun, which sets each process's rank:
@@ -28,6 +36,7 @@ import os
 import socket
 
 from repro_torch.core.config import ModelConfig, PipeConfig
+from repro_torch.core.elastic import ElasticConfig
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.health import HealthConfig
 from repro_torch.core.trainer import train_pipegcn
@@ -39,9 +48,6 @@ from repro_torch.graph.synthetic import model_template
 # the ROADMAP Queue 1 item that ports them. Each is refused when given away
 # from its default.
 UNPORTED = {
-    10: ("elastic runtime",
-         ("elastic", "elastic_detect_after", "elastic_warm",
-          "elastic_max_recoveries", "elastic_no_rejoin")),
     12: ("the transformer LM workload",
          ("workload", "arch", "reduced", "steps", "batch", "seq")),
 }
@@ -135,6 +141,13 @@ def _run_gcn(args, log) -> dict:
         faults = FaultPlan(rate=args.fault_rate, rate_kind=args.fault_kind,
                            seed=args.fault_seed)
     health = HealthConfig(enabled=False) if args.no_health else None
+    elastic = None
+    if args.elastic:
+        elastic = ElasticConfig(detect_after=args.elastic_detect_after,
+                                warm_staleness=args.elastic_warm,
+                                max_recoveries=args.elastic_max_recoveries,
+                                rejoin=not args.elastic_no_rejoin,
+                                parts_per_device=args.parts_per_device)
     res = train_pipegcn(pipeline, mc, pc, epochs=args.epochs,
                         lr=args.lr or tpl["lr"], seed=args.seed,
                         eval_every=args.eval_every, log=log,
@@ -144,7 +157,8 @@ def _run_gcn(args, log) -> dict:
                         faults=faults, ckpt_dir=args.ckpt_dir,
                         checkpoint_every=args.ckpt_every,
                         resume=args.resume,
-                        checkpoint_keep=args.ckpt_keep or None)
+                        checkpoint_keep=args.ckpt_keep or None,
+                        elastic=elastic)
     out = {"workload": "gcn", "dataset": args.dataset,
            "partitions": args.partitions, "variant": args.variant,
            "device": args.device, "agg": args.agg,
@@ -153,17 +167,19 @@ def _run_gcn(args, log) -> dict:
            "wire": pc.wire, "slice_boundary": pc.slice_boundary,
            "spmd": args.spmd, "parts_per_device": args.parts_per_device,
            "guard_exchange": pc.guard_exchange, "fault_rate": args.fault_rate,
-           "anomalies": res.anomalies, "resumed_from": res.resumed_from,
+           "elastic": bool(args.elastic), "anomalies": res.anomalies,
+           "resumed_from": res.resumed_from, "recoveries": res.recoveries,
            "preempted": res.preempted, "final": res.final_metrics,
            "epochs_per_sec": res.epochs_per_sec, "history": res.history}
     if args.ckpt_dir and not args.ckpt_every and log:
         # legacy params-only export; with --ckpt-every the trainer already
-        # wrote full-state step dirs into the same directory (rank 0 only)
+        # wrote full-state step dirs into the same directory (one rank only)
         from repro_torch.checkpoint import save_checkpoint
         save_checkpoint(args.ckpt_dir, args.epochs, res.params)
     if log:
-        log(json.dumps({k: out[k] for k in ("final", "epochs_per_sec")},
-                       indent=1))
+        shown = ("final", "epochs_per_sec") + (
+            ("elastic", "recoveries") if args.elastic else ())
+        log(json.dumps({k: out[k] for k in shown}, indent=1))
     return out
 
 
@@ -208,7 +224,9 @@ def parser() -> argparse.ArgumentParser:
                     help="train on the torch.distributed backend, one "
                          "process per rank (start with torchrun)")
     ap.add_argument("--parts-per-device", type=int, default=1,
-                    help="partitions each rank holds under --spmd")
+                    help="partitions each rank holds under --spmd; without "
+                         "it, partitions per device of the sim backend for "
+                         "--elastic")
     ap.add_argument("--overlap", default="auto",
                     choices=["auto", "none", "split-phase"],
                     help="split-phase overlap schedule: auto = split where "
@@ -245,14 +263,22 @@ def parser() -> argparse.ArgumentParser:
                     help="keep only the newest N checkpoints (0 = all)")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint in --ckpt-dir")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic runtime: detect a lost device from the "
+                         "guarded exchange, remap its partitions onto the "
+                         "survivors from the last checkpoint, rejoin later "
+                         "(needs --guard-exchange, --ckpt-dir, --ckpt-every)")
+    ap.add_argument("--elastic-detect-after", type=int, default=2,
+                    help="consecutive whole-device fallback steps that "
+                         "declare a device lost")
+    ap.add_argument("--elastic-warm", type=int, default=1,
+                    help="es count stamped on the remapped exchanges")
+    ap.add_argument("--elastic-max-recoveries", type=int, default=2)
+    ap.add_argument("--elastic-no-rejoin", action="store_true",
+                    help="stay on the survivors once a device is lost")
     # Flags of the JAX launcher whose features are not ported yet (UNPORTED):
     # accepted with the JAX names, types and defaults so that a JAX command
     # line parses, then refused by unported_flags.
-    ap.add_argument("--elastic", action="store_true")
-    ap.add_argument("--elastic-detect-after", type=int, default=2)
-    ap.add_argument("--elastic-warm", type=int, default=1)
-    ap.add_argument("--elastic-max-recoveries", type=int, default=2)
-    ap.add_argument("--elastic-no-rejoin", action="store_true")
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
@@ -267,8 +293,6 @@ def main(argv=None):
     bad = unported_flags(args)
     if bad:
         ap.error("not ported to repro_torch yet: " + "; ".join(bad))
-    if args.parts_per_device != 1 and not args.spmd:
-        ap.error("--parts-per-device needs --spmd")
     return run_gcn(args)
 
 

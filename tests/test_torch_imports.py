@@ -5,6 +5,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 PROBE = """
@@ -33,3 +35,12 @@ def test_port_imports_neither_jax_nor_repro():
     expected = 2 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")))
     assert int(proc.stdout.split()[-1]) == expected
+
+
+@pytest.mark.parametrize("name", ["repro_torch.core.elastic",
+                                  "repro_torch.launch.mesh"])
+def test_probe_walks_the_elastic_modules(name):
+    """The elastic runtime's modules are among those the probe imports."""
+    import repro_torch
+    assert name in {m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch.")}

@@ -453,7 +453,9 @@ def test_cli_runs_every_overlap(capsys, overlap):
 def test_cli_spmd_single_rank(capsys):
     """--spmd without torchrun: one gloo rank holding all 4 partitions;
     the same losses as the sim backend, and the process group is gone
-    afterwards."""
+    afterwards. Without --spmd, --parts-per-device is accepted as the JAX
+    launcher accepts it (the sim backend's device size under --elastic)
+    and leaves the sim run as it is."""
     import torch.distributed as dist
     from repro_torch.launch.train import main
     args = ["--device", "cpu", "--dataset", "grid-tiny", "--epochs", "2",
@@ -464,5 +466,5 @@ def test_cli_spmd_single_rank(capsys):
     assert not dist.is_initialized()
     sim = main(args)
     assert spmd["history"]["loss"] == sim["history"]["loss"]
-    with pytest.raises(SystemExit):
-        main(args + ["--parts-per-device", "2"])
+    per_device = main(args + ["--parts-per-device", "2"])
+    assert per_device["history"]["loss"] == sim["history"]["loss"]

@@ -176,9 +176,6 @@ def _jax_launcher_flags() -> dict:
 
 # (flag, value or None for a store_true flag, ROADMAP Queue 1 item)
 UNPORTED_CASES = [
-    ("--elastic", None, 10), ("--elastic-detect-after", "3", 10),
-    ("--elastic-warm", "0", 10), ("--elastic-max-recoveries", "1", 10),
-    ("--elastic-no-rejoin", None, 10),
     ("--workload", "lm", 12), ("--arch", "starcoder2-3b", 12),
     ("--reduced", None, 12), ("--steps", "10", 12), ("--batch", "2", 12),
     ("--seq", "64", 12),
@@ -277,6 +274,85 @@ def test_cli_runs_item9_flags(capsys, tmp_path, flag, value, extra):
         assert out["history"]["epoch"] == [1]
     else:
         assert out["resumed_from"] is None
+
+
+# (flag, its value or None for a store_true flag, the ElasticConfig field
+# it sets and the value it gets): the item 10 flags, and --parts-per-device
+# without --spmd, which sets the sim backend's device size
+ELASTIC_CASES = [
+    ("--elastic", None, "enabled", True),
+    ("--elastic-detect-after", "3", "detect_after", 3),
+    ("--elastic-warm", "0", "warm_staleness", 0),
+    ("--elastic-max-recoveries", "1", "max_recoveries", 1),
+    ("--elastic-no-rejoin", None, "rejoin", False),
+    ("--parts-per-device", "2", "parts_per_device", 2),
+]
+
+
+def _recording_trainer(monkeypatch, faults=None):
+    """Wrap the launcher's train_pipegcn: record its keyword arguments and
+    (when given) run it under the fault plan `faults`."""
+    import repro_torch.launch.train as launcher
+    seen = {}
+
+    def train(*args, **kw):
+        seen.update(kw)
+        if faults is not None:
+            kw["faults"] = faults
+        return train_pipegcn(*args, **kw)
+
+    monkeypatch.setattr(launcher, "train_pipegcn", train)
+    return seen
+
+
+@pytest.mark.parametrize("flag,value,field,want", ELASTIC_CASES)
+def test_cli_runs_item10_flags(capsys, monkeypatch, tmp_path, flag, value,
+                               field, want):
+    """Each elastic flag trains 2 epochs of tiny on the CPU (with
+    --elastic, --guard-exchange and checkpoints) and reaches the trainer's
+    ElasticConfig with its value; the final JSON says "elastic": true and
+    counts the recoveries."""
+    seen = _recording_trainer(monkeypatch)
+    argv = ["--device", "cpu", "--dataset", "tiny", "--epochs", "2",
+            "--eval-every", "1", "--guard-exchange", "--elastic",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    if flag != "--elastic":
+        argv += [flag] + ([value] if value is not None else [])
+    out = main(argv)
+    printed = capsys.readouterr().out
+    ec = seen["elastic"]
+    assert getattr(ec, field) == want
+    assert seen["parts_per_device"] is None      # the sim backend
+    assert out["elastic"] is True and out["recoveries"] == 0
+    assert out["anomalies"]["device_losses"] == []
+    assert '"elastic": true' in printed
+    assert all(math.isfinite(v) for v in out["history"]["loss"])
+
+
+def test_cli_elastic_drill_prints_the_jax_lines(capsys, monkeypatch,
+                                                tmp_path):
+    """The launcher under --elastic --guard-exchange --ckpt-every 4, with
+    device 2 down for steps [5, 9) set through the API, recovers and
+    rejoins, printing the JAX launcher's recovery and rejoin lines (the
+    JAX trainer prints these two for this plan: tests/test_torch_elastic.py
+    compares the trainers' lines)."""
+    from repro_torch.core import FaultPlan, device_down_site
+    _recording_trainer(monkeypatch, FaultPlan(sites=(device_down_site(
+        step=5, device=2, until=9),)))
+    out = main(["--device", "cpu", "--dataset", "tiny", "--partitions", "4",
+                "--epochs", "12", "--eval-every", "4", "--guard-exchange",
+                "--elastic", "--ckpt-every", "4", "--ckpt-dir",
+                str(tmp_path)])
+    printed = capsys.readouterr().out
+    assert out["recoveries"] == 1 and out["anomalies"]["rejoins"] == 1
+    assert [ln for ln in printed.splitlines()
+            if ln.startswith(("device ", "rejoin:"))] == [
+        "device 2 lost at epoch 6: remapped 4 partitions onto survivors "
+        "[0, 1, 3] (2/device, 2 pad), restored checkpoint step 4, resuming "
+        "at epoch 4",
+        "rejoin: scaled back up to 4 devices at checkpoint step 12 "
+        "(3 partitions warm-marked)"]
+    assert '"recoveries": 1' in printed
 
 
 def test_cli_runs_a_jax_command_line_at_defaults(capsys):
