@@ -205,6 +205,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
                buffers, pads' es 0), the survivor-layout step against the
                original's in turns (medians of 20) with one profiled step
                each, exchanges per step and the buffers' bytes.
+  7d. api    the GCN-side API (every line carries the card's name and
+             power limit):
+             - ops: the six kernels/ops.py entry points on partition 0's
+               tile arrays, with the launch counts zeroed before and read
+               after (one launch each, two per phased pair): reddit-sim
+               P=4 spmm / spmm_t at F = 256, spmm_fused 128→256 with z,
+               spmm_fused_t 256←256, yelp-sim P=2 spmm_phased /
+               spmm_t_phased at F = 512 (both phases); each against its
+               plain version (1e-5; the fused pair to scale) and bitwise
+               against partition 0 of the stacked wrapper's launch
+               (reported), with the host ms of building its schedule;
+             - make_pipegcn_loss: 2 steps at reddit-sim P=4 full width
+               under blocksparse/auto and fused/auto: loss, gradients and
+               buffers bitwise equal to train_step's, the gradient of
+               3·loss bitwise 3× the gradient, launches per step equal to
+               train_step's and to expected_launches;
+             - optim: adamw with linear_warmup_cosine and max_grad_norm, 5
+               steps on the reddit-sim parameters, card vs CPU within 1e-6
+               relative norm;
+             - schedule: launch/check_schedule.py's five cells on the sim
+               backend and on one NCCL rank holding 4 partitions;
+             - examples: torch_quickstart (3 epochs) and
+               torch_stale_halo_transformer (20 steps) on the card.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -2596,6 +2619,294 @@ def phase_elastic(reddit):
     return dict(kernels=kernels, drills=drills, steps=steps), runs
 
 
+# ---------------------------------------------------------------------
+# The GCN-side API slice: the ops entry points, make_pipegcn_loss, the
+# optimizer family, the schedule preflight and the examples
+# ---------------------------------------------------------------------
+
+def _api_ops(reddit, yelp2, card):
+    """The six ops entry points on partition 0's tile arrays, each called
+    once with the launch counts zeroed before and read after (one launch
+    per call, two per phased pair): reddit-sim P=4 spmm / spmm_t at F =
+    256, spmm_fused 128->256 with z, spmm_fused_t 256<-256; yelp-sim P=2
+    spmm_phased / spmm_t_phased at F = 512, both phases. Each against its
+    plain version at 1e-5 (the fused pair to scale), and bitwise against
+    partition 0 of the stacked wrapper's launch (reported); the host ms
+    of building each call's schedule."""
+    import torch
+    from repro_torch.kernels import gcn_spmm, ops
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    topo = reddit.topo
+    P, R = topo.num_parts, topo.max_inner
+    C = R + topo.halo_size
+    fwd = (topo.tile_rows, topo.tile_cols, topo.tile_vals)
+    bwd = (topo.tile_t_out, topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
+    fwd0, bwd0 = [a[0] for a in fwd], [a[0] for a in bwd]
+    x = {"h": torch.randn(P, C, 256, device="cuda", generator=gen),
+         "dz": torch.randn(P, R, 256, device="cuda", generator=gen),
+         "hf": torch.randn(P, C, 128, device="cuda", generator=gen),
+         "du": torch.randn(P, R, 256, device="cuda", generator=gen)}
+    w = torch.randn(128, 256, device="cuda", generator=gen) / 128 ** 0.5
+    b = torch.randn(256, device="cuda", generator=gen)
+    wt = torch.randn(256, 256, device="cuda", generator=gen) / 16.0
+    y = yelp2.topo
+    sp = yelp2.split_spec()
+    yR, yC = y.max_inner, y.max_inner + y.halo_size
+    yfwd = (y.tile_rows, y.tile_cols, y.tile_vals)
+    ybwd = (y.tile_t_out, y.tile_t_in, y.tile_t_perm, y.tile_vals)
+    yfwd0, ybwd0 = [a[0] for a in yfwd], [a[0] for a in ybwd]
+    yh = torch.randn(2, yC, 512, device="cuda", generator=gen)
+    ydz = torch.randn(2, yR, 512, device="cuda", generator=gen)
+    assert ops._split(yfwd0[0], sp.fwd_bnd_tiles).row_tail == sp.row_tail
+    assert ops._split(ybwd0[0], sp.t_bnd_tiles).col_tail == sp.col_tail
+    calls = {   # name -> the entry point's call
+        "spmm": lambda: ops.spmm(*fwd0, x["h"][0], R),
+        "spmm_t": lambda: ops.spmm_t(*bwd0, x["dz"][0], C),
+        "spmm_fused": lambda: ops.spmm_fused(*fwd0, x["hf"][0], w, b[None],
+                                             R, relu=False, with_z=True),
+        "spmm_fused_t": lambda: ops.spmm_fused_t(*bwd0, x["du"][0], wt, C),
+        "spmm_phased": lambda: [ops.spmm_phased(*yfwd0, yh[0], yR,
+                                                sp.fwd_bnd_tiles, ph)
+                                for ph in ("boundary", "interior")],
+        "spmm_t_phased": lambda: [ops.spmm_t_phased(*ybwd0, ydz[0], yC,
+                                                    sp.t_bnd_tiles, ph)
+                                  for ph in ("boundary", "interior")],
+    }
+    reset_launches()
+    got = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want_launches = dict.fromkeys(KERNELS, 1)
+    want_launches.update(spmm_phased=2, spmm_t_phased=2, flash_attention=0)
+    assert launches == want_launches, launches
+    # the plain versions and the stacked launches on the same inputs
+    sched = (topo.tile_work, topo.tile_items)
+    t_sched = (topo.tile_t_work, topo.tile_t_items)
+    ysched, yt_sched = (y.tile_work, y.tile_items), (y.tile_t_work,
+                                                     y.tile_t_items)
+    one = lambda arrs: [a[:1] for a in arrs]            # noqa: E731
+    plain = {
+        "spmm": gcn_spmm.spmm_plain(*one(fwd), x["h"][:1], R)[0],
+        "spmm_t": gcn_spmm.spmm_t_plain(*one(bwd), x["dz"][:1], C)[0],
+        "spmm_fused": [t[0] for t in gcn_spmm.spmm_fused_plain(
+            *one(fwd), x["hf"][:1], w, b, R)],
+        "spmm_fused_t": gcn_spmm.spmm_fused_t_plain(
+            *one(bwd), x["du"][:1], wt, C)[0],
+        "spmm_phased": [gcn_spmm.spmm_phased_plain(
+            *one(yfwd), yh[:1], yR, sp, ph)[0]
+            for ph in ("boundary", "interior")],
+        "spmm_t_phased": [gcn_spmm.spmm_t_phased_plain(
+            *one(ybwd), ydz[:1], yC, sp, ph)[0]
+            for ph in ("boundary", "interior")],
+    }
+    stacked = {
+        "spmm": gcn_spmm.spmm(*sched, *fwd, x["h"], R)[0],
+        "spmm_t": gcn_spmm.spmm_t(*t_sched, *bwd, x["dz"], C)[0],
+        "spmm_fused": [t[0] for t in gcn_spmm.spmm_fused(
+            *sched, *fwd, x["hf"], w, b, R)],
+        "spmm_fused_t": gcn_spmm.spmm_fused_t(*t_sched, *bwd, x["du"], wt,
+                                              C)[0],
+        "spmm_phased": [gcn_spmm.spmm_phased(*ysched, *yfwd, yh, yR, sp,
+                                             ph)[0]
+                        for ph in ("boundary", "interior")],
+        "spmm_t_phased": [gcn_spmm.spmm_t_phased(*yt_sched, *ybwd, ydz, yC,
+                                                 sp, ph)[0]
+                          for ph in ("boundary", "interior")],
+    }
+    builders = {
+        "spmm": lambda: ops.forward_schedule(*fwd0, R),
+        "spmm_t": lambda: ops.transpose_schedule(*bwd0, C),
+        "spmm_fused": lambda: ops.forward_schedule(*fwd0, R),
+        "spmm_fused_t": lambda: ops.transpose_schedule(*bwd0, C),
+        "spmm_phased": lambda: ops.forward_schedule(*yfwd0, yR),
+        "spmm_t_phased": lambda: ops.transpose_schedule(*ybwd0, yC),
+    }
+    owned = {"spmm_phased": [(sp.row_tail, yR), (0, sp.row_tail)],
+             "spmm_t_phased": [(sp.col_tail, yC), (0, sp.col_tail)]}
+    rows = {}
+    for name in calls:
+        g, pl, st = got[name], plain[name], stacked[name]
+        if name in owned:    # a phase's own rows
+            g, pl, st = ([t[lo:hi] for t, (lo, hi) in zip(v, owned[name])]
+                         for v in (g, pl, st))
+        g, pl, st = ([t] if torch.is_tensor(t) else t for t in (g, pl, st))
+        for i, (a, c) in enumerate(zip(g, pl)):
+            if name.startswith("spmm_fused") and i == 0:
+                gcn_spmm.assert_close_to_scale(a, c, f"ops.{name}")
+            else:
+                torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+        err = max(float((a - c).abs().max()) for a, c in zip(g, pl))
+        same = all(torch.equal(a, c) for a, c in zip(g, st))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        builders[name]()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows[name] = dict(max_abs_err=err, bitwise_vs_stacked=same,
+                          schedule_host_ms=ms)
+        log(f"api ops [{card}]: ops.{name} max_abs_err vs plain {err:.3g}, "
+            f"{'bitwise equal to' if same else 'DIFFERS from'} partition 0 "
+            f"of the stacked launch; schedule built in {ms:.2f} host ms")
+    return rows, launches
+
+
+def _api_loss(reddit, card):
+    """make_pipegcn_loss on reddit-sim P=4 at full width (hidden 256, 4
+    layers, dropout 0.5 with matched generators), blocksparse/auto and
+    fused/auto, 2 steps: loss, gradients and buffers bitwise equal to
+    train_step's, the gradient of 3·loss bitwise 3× the gradient, and
+    each step's launches equal to train_step's and to expected_launches.
+    Returns the runs' launch counts."""
+    import torch
+    from repro_torch.core import PipeConfig, PipeGCN, make_pipegcn_loss
+    topo, data = reddit.topo, reddit.train_data
+    runs, out = {}, {}
+    for agg in ("blocksparse", "fused"):
+        mc, lr = _model_config(reddit, agg, "auto")
+        model = PipeGCN(mc, PipeConfig.named("pipegcn"))
+        loss_fn = make_pipegcn_loss(model, topo)
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        b_ref = b_api = model.init_buffers(topo)
+        g_ref, g_api, g_3 = (torch.Generator(device="cuda").manual_seed(1)
+                             for _ in range(3))
+        want = expected_launches(model, topo, 1, 0)
+        total = dict.fromkeys(KERNELS, 0)
+        for t in range(2):
+            b_in = b_api
+            reset_launches()
+            l0, gr0, b_ref, _ = model.train_step(topo, params, b_ref, data,
+                                                 g_ref)
+            torch.cuda.synchronize()
+            ref_launches = read_launches()
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in params.items()}
+            reset_launches()
+            loss, b_api = loss_fn(leaves, b_in, data, g_api)
+            loss.backward()
+            torch.cuda.synchronize()
+            api_launches = read_launches()
+            assert api_launches == ref_launches == want, (
+                agg, t, api_launches, ref_launches, want)
+            for k, v in api_launches.items():
+                total[k] += v
+            _bit_equal((loss.detach(), {k: v.grad for k, v in leaves.items()},
+                        b_api), (l0, gr0, b_ref), f"api loss {agg} step {t}")
+            assert not any(x.requires_grad for x in _leaves(b_api))
+            leaves3 = {k: v.detach().requires_grad_()
+                       for k, v in params.items()}
+            loss3, _ = loss_fn(leaves3, b_in, data, g_3)
+            (3 * loss3).backward()
+            for k in gr0:
+                assert torch.equal(leaves3[k].grad, 3 * gr0[k]), (agg, t, k)
+            params = {k: params[k] - lr * gr0[k] for k in params}
+        log(f"api loss [{card}]: make_pipegcn_loss reddit-sim P=4 {agg}/auto "
+            f"(hidden 256, 4 layers, dropout 0.5): 2 steps, loss "
+            f"{float(l0):.6f}, loss / gradients / buffers bitwise equal to "
+            f"train_step's, grad of 3·loss == 3·grad bitwise, launches per "
+            f"step {want} (== train_step's)")
+        runs["api make_pipegcn_loss reddit-sim P=4", agg, "auto"] = dict(
+            launches=total)
+        out[agg] = dict(loss=float(l0), launches_per_step=want)
+    return out, runs
+
+
+def _api_optim(reddit, card):
+    """adamw under linear_warmup_cosine with max_grad_norm, 5 steps on the
+    reddit-sim parameters (full width) with the main path's gradients,
+    against the same optimizer run on the CPU from the same parameters and
+    gradients: parameters and both moments within 1e-6 relative norm."""
+    import torch
+    from repro_torch.core import PipeConfig, PipeGCN
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    mc, lr = _model_config(reddit, "blocksparse", "auto")
+    model = PipeGCN(mc, PipeConfig.named("pipegcn"))
+    opt = adamw(linear_warmup_cosine(lr, 2, 5), weight_decay=0.01,
+                max_grad_norm=1.0)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    card_p, card_s = params, opt.init(params)
+    cpu_p = {k: v.cpu() for k, v in params.items()}
+    cpu_s = opt.init(cpu_p)
+    bufs = model.init_buffers(reddit.topo)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for t in range(5):
+        _, grads, bufs, _ = model.train_step(reddit.topo, card_p, bufs,
+                                             reddit.train_data, gen)
+        card_p, card_s = opt.apply(card_p, grads, card_s)
+        cpu_p, cpu_s = opt.apply(cpu_p, {k: g.cpu() for k, g in grads.items()},
+                                 cpu_s)
+        for tree_card, tree_cpu, what in ((card_p, cpu_p, "param"),
+                                          (card_s.mu, cpu_s.mu, "mu"),
+                                          (card_s.nu, cpu_s.nu, "nu")):
+            for k in tree_cpu:
+                worst = max(worst, _rel_close(tree_card[k].cpu(),
+                                              tree_cpu[k],
+                                              f"adamw {what} {k} step {t}",
+                                              rel=1e-6))
+    log(f"api optim [{card}]: adamw(linear_warmup_cosine(lr, 2, 5), "
+        f"weight_decay 0.01, max_grad_norm 1.0) 5 steps on reddit-sim's "
+        f"parameters: card vs CPU worst relative norm {worst:.3g} (<= 1e-6)")
+    return dict(worst_rel=worst)
+
+
+def _api_examples(card):
+    """The schedule preflight's five cells on the card (sim backend, and
+    one NCCL rank holding the 4 partitions), and the quickstart and
+    stale-halo examples for a few epochs."""
+    import importlib.util
+    import math
+    from repro_torch.launch import check_schedule
+    t0 = time.perf_counter()
+    n = check_schedule.check_cells(check_schedule._pipeline("cuda"),
+                                   log=lambda s: log(f"api schedule: {s}"))
+    n += check_schedule.check_spmd("cuda")
+    log(f"api schedule [{card}]: check_schedule {n} cells (sim + NCCL) OK "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+    out = {}
+    t0 = time.perf_counter()
+    res = example("torch_quickstart").main(epochs=3, device="cuda")
+    losses = {k: r.history["loss"][-1] for k, r in res.items()}
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    out["quickstart_s"] = time.perf_counter() - t0
+    log(f"api examples [{card}]: torch_quickstart 3 epochs x 3 variants, "
+        f"final losses {losses}, {out['quickstart_s']:.2f} s")
+    t0 = time.perf_counter()
+    res = example("torch_stale_halo_transformer").main(steps=20,
+                                                       device="cuda")
+    assert all(math.isfinite(v[-1]) for v in res.values()), res
+    out["halo_s"] = time.perf_counter() - t0
+    log(f"api examples [{card}]: torch_stale_halo_transformer 20 steps x 3 "
+        f"modes, final losses { {k: v[-1] for k, v in res.items()} }, "
+        f"{out['halo_s']:.2f} s")
+    return out
+
+
+def phase_api(reddit, split_pipes):
+    """The GCN-side API on the card: the ops entry points, make_pipegcn_loss,
+    the optimizer family, the schedule preflight and two examples. Returns
+    the runs' launch counts for the kernels line."""
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    ops_rows, ops_launches = _api_ops(reddit, split_pipes[0], card)
+    loss, runs = _api_loss(reddit, card)
+    runs["api ops", "partition 0", "reddit-sim P=4 / yelp-sim P=2"] = dict(
+        launches=ops_launches)
+    optim = _api_optim(reddit, card)
+    examples = _api_examples(card)
+    log(f"api [{card}]: " + json.dumps(dict(ops=ops_rows, loss=loss,
+                                            optim=optim, examples=examples)))
+    log(f"api: phase took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def phase_exchange(split_pipes, runs):
     """The boundary exchange of the split step on the sim backend (the
     counterpart of the TPU's start_boundary_rdma): the packed forward
@@ -3000,6 +3311,7 @@ def main(argv) -> int:
     phase_wire(reddit, yelp, split_pipes, runs)
     phase_faults(reddit)
     runs.update(phase_elastic(reddit)[1])
+    runs.update(phase_api(reddit, split_pipes))
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

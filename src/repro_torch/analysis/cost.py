@@ -280,3 +280,41 @@ def graph_layout_report(pg, tile: int = _TILE) -> dict:
         "bnd_tiles": bnd_total,
         "bnd_tile_share": float(bnd_total / max(tiles_total, 1)),
     }
+
+
+def split_overlap_report(pg, layer_dims, tile: int = _TILE,
+                         dtype_bytes: int = 4) -> list[dict]:
+    """Static per-layer price of the split-phase schedule.
+
+    For each layer: the tensor-core FLOPs of the boundary phase (the
+    critical-path prefix that must finish before the exchange can be
+    issued), the interior-phase FLOPs available to hide the exchange
+    behind, and the per-partition bytes each direction puts on the wire
+    (forward feature send of width fin; the backward gradient send has the
+    same width — layer 0 sends no gradient). `overlappable` is the interior
+    share of the padded tile stream — what fraction of the layer's sparse
+    work the schedule moves behind the in-flight exchange. Tile counts are
+    the PADDED per-partition stream (every partition walks the same stream
+    length), from the same memoized extraction the Topology uses; returns
+    [] when the split is infeasible for this graph."""
+    from repro_torch.graph.halo import extract_partition_tiles
+    pt = extract_partition_tiles(pg, tile)
+    if pt.fwd_bnd is None:
+        return []
+    n_tiles = pt.rows.shape[-1]
+    wire_rows = pg.num_parts * pg.slot
+    out = []
+    for ell, (fin, fout) in enumerate(layer_dims):
+        tc = 2.0 * tile * tile          # multiply-adds per tile per column
+        out.append({
+            "layer": ell,
+            "bnd_flops": pt.fwd_bnd * tc * fin,
+            "int_flops": (n_tiles - pt.fwd_bnd) * tc * fin,
+            "t_bnd_flops": pt.t_bnd * tc * fin,
+            "t_int_flops": (n_tiles - pt.t_bnd) * tc * fin,
+            "wire_bytes": wire_rows * fin * dtype_bytes,
+            "grad_wire_bytes": (wire_rows * fin * dtype_bytes
+                                if ell > 0 else 0),
+            "overlappable": float((n_tiles - pt.fwd_bnd) / n_tiles),
+        })
+    return out

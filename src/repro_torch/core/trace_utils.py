@@ -164,3 +164,34 @@ def check_overlap(events) -> None:
         if rest.count("exchange_wait") < rest.count("exchange_start"):
             raise AssertionError(f"exchange start {i} is never waited on "
                                  f"after its interior phase: {events}")
+
+
+def check_split_schedule(model, topo, data, train: bool = True,
+                         backend=None) -> list:
+    """Run one split-phase step of `model` (a training step, or with
+    train=False the eval pass of the same pipeline configuration) through a
+    RecordingBackend around `backend` (default the sim backend), from the
+    seed-0 parameters and zero buffers, and assert that its events equal
+    `expected_split_events` and pass `check_overlap`: every exchange sits
+    between a boundary and an interior phase as scheduled. Returns the
+    recorded events."""
+    import torch
+    from repro_torch.core.pipegcn import SimBackend
+    from repro_torch.device import exact_f32_matmul
+    if model._split_active() is None:
+        raise ValueError("the model runs no split-phase step (no split "
+                         "spec, or overlap disabled for its engine)")
+    rec = RecordingBackend(SimBackend() if backend is None else backend)
+    gen = torch.Generator(device=data.x.device).manual_seed(0)
+    params = model.init_params(gen, dtype=data.x.dtype)
+    buffers = model.init_buffers(topo, dtype=data.x.dtype)
+    exact_f32_matmul()
+    with torch.no_grad():
+        model._step_impl(rec, topo, params, buffers, data, gen, train=train)
+    expected = expected_split_events(model.model.num_layers, model.pipe.fused,
+                                     train=train)
+    if rec.events != expected:
+        raise AssertionError(f"split-phase schedule mismatch:\n  recorded "
+                             f"{rec.events}\n  expected {expected}")
+    check_overlap(rec.events)
+    return rec.events

@@ -49,8 +49,9 @@ take up as the blocks' aggregates complete. The plain versions walk the
 whole block index streams. Each wrapper's ``launches`` attribute counts
 its kernel launches.
 
-Tile extraction (``build_tile_topology`` and the padding helpers) is a
-numpy copy of the JAX package's and builds the same arrays byte for byte.
+Tile extraction (``build_tile_topology``, ``build_tiles``,
+``tile_density`` and the padding helpers) is a numpy copy of the JAX
+package's and builds the same arrays byte for byte.
 """
 from __future__ import annotations
 
@@ -611,24 +612,50 @@ def tile_schedule(ptr: np.ndarray, nonzero: np.ndarray, tile: np.ndarray,
     return work, item
 
 
+def nonzero_tiles(vals) -> np.ndarray:
+    """(P, n) numpy bool: whether each tile of vals (P, n, T, T) holds a
+    nonzero. A tensor is reduced on its own device, and only the flags
+    come to the host."""
+    if isinstance(vals, torch.Tensor):
+        return (vals.abs().amax(dim=(-1, -2)) > 0).cpu().numpy()
+    return np.abs(vals).max(axis=(-1, -2)) > 0
+
+
+def forward_schedule(rows, cols, nonzero, num_rows: int,
+                     chunk: int = SCHED_CHUNK,
+                     walk_all: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """`tile_schedule` of stacked (P, n) forward streams rows / cols, whose
+    slot s holds value tile s; nonzero (P, n) from `nonzero_tiles`."""
+    slots = np.broadcast_to(np.arange(rows.shape[1]), rows.shape)
+    return tile_schedule(run_pointers(rows, -(-num_rows // TILE)), nonzero,
+                         slots, cols, chunk, walk_all)
+
+
+def transpose_schedule(t_out, t_in, t_perm, nonzero, num_cols: int,
+                       chunk: int = SCHED_CHUNK,
+                       walk_all: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """`tile_schedule` of stacked (P, n) transpose streams, whose slot s
+    holds value tile t_perm[s]; nonzero (P, n) is per value tile."""
+    t_perm = np.asarray(t_perm, np.int64)
+    return tile_schedule(run_pointers(t_out, -(-num_cols // TILE)),
+                         np.take_along_axis(nonzero, t_perm, axis=1), t_perm,
+                         t_in, chunk, walk_all)
+
+
 def tile_schedules(streams, num_rows: int, num_cols: int,
                    chunk: int = SCHED_CHUNK,
                    walk_all: bool = False) -> dict[str, np.ndarray]:
-    """The forward and transpose schedules (`tile_schedule`) of stacked
-    (P, n) tile streams: {"work", "items", "t_work", "t_items"}. `streams`
-    holds them as numpy attributes rows, cols, vals, t_out, t_in and t_perm
-    (a ``PartitionTiles``, say); P has num_rows rows and num_cols columns.
+    """The forward and transpose schedules of stacked (P, n) tile streams:
+    {"work", "items", "t_work", "t_items"}. `streams` holds them as numpy
+    attributes rows, cols, vals, t_out, t_in and t_perm (a
+    ``PartitionTiles``, say); P has num_rows rows and num_cols columns.
     ``Topology.with_schedules`` rebuilds a topology's schedules with it."""
-    rows, vals = streams.rows, streams.vals
-    nonzero = np.abs(vals).max(axis=(-1, -2)) > 0
-    t_perm = np.asarray(streams.t_perm, np.int64)
-    slots = np.broadcast_to(np.arange(rows.shape[1]), rows.shape)
-    work, items = tile_schedule(run_pointers(rows, -(-num_rows // TILE)),
-                                nonzero, slots, streams.cols, chunk, walk_all)
-    t_work, t_items = tile_schedule(
-        run_pointers(streams.t_out, -(-num_cols // TILE)),
-        np.take_along_axis(nonzero, t_perm, axis=1), t_perm, streams.t_in,
-        chunk, walk_all)
+    nonzero = nonzero_tiles(streams.vals)
+    work, items = forward_schedule(streams.rows, streams.cols, nonzero,
+                                   num_rows, chunk, walk_all)
+    t_work, t_items = transpose_schedule(streams.t_out, streams.t_in,
+                                         streams.t_perm, nonzero, num_cols,
+                                         chunk, walk_all)
     return dict(work=work, items=items, t_work=t_work, t_items=t_items)
 
 
@@ -830,3 +857,28 @@ def pad_tile_topology_phased(tt: TileTopology, b0: int, hb0: int,
         rows=rows, cols=cols, vals=vals,
         t_out=cols[t_perm], t_in=rows[t_perm], t_perm=t_perm,
         num_row_blocks=nrb, num_col_blocks=ncb)
+
+
+def build_tiles(dense_or_coo, num_rows: int, num_cols: int,
+                tile: int = TILE):
+    """Forward-only extraction: (tile_rows, tile_cols, tile_vals).
+
+    Accepts a dense (R, C) matrix or a (row, col, val) COO triple. The COO
+    path never densifies (see build_tile_topology); the dense path converts
+    the caller's matrix to COO first."""
+    if isinstance(dense_or_coo, tuple):
+        row, col, val = dense_or_coo
+    else:
+        dense = np.asarray(dense_or_coo)
+        row, col = np.nonzero(dense)
+        val = dense[row, col]
+    tt = build_tile_topology(row, col, val, num_rows, num_cols, tile)
+    return tt.rows, tt.cols, tt.vals
+
+
+def tile_density(tile_rows, num_rows: int, num_cols: int,
+                 tile: int = TILE) -> float:
+    """Fraction of tiles stored vs the dense tile grid."""
+    nrb = -(-num_rows // tile)
+    ncb = -(-num_cols // tile)
+    return len(tile_rows) / float(nrb * ncb)

@@ -1,5 +1,5 @@
-"""Device layout of the partitions, and the survivor group of an elastic
-plan.
+"""Device layout of the partitions, the survivor group of an elastic
+plan, and the launcher of a job's ranks as processes of one host.
 
 Port of the JAX package's ``repro.launch.mesh`` partition layout and
 survivor mesh. A device here is a ``torch.distributed`` rank (one process
@@ -8,6 +8,10 @@ co-resident partitions on the one device. The JAX mesh constructors and
 the TPU roofline constants have no counterpart: the port builds no mesh.
 """
 from __future__ import annotations
+
+import os
+import subprocess
+import tempfile
 
 
 def _world_size() -> int:
@@ -70,3 +74,34 @@ def make_survivor_group(plan):
     if not (dist.is_available() and dist.is_initialized()):
         return None
     return dist.new_group(ranks=survivor_ranks(plan, dist.get_world_size()))
+
+
+def run_ranks(argv_of, world: int, timeout_s: float,
+              capture: bool = False) -> list[tuple[int, str | None]]:
+    """Run a `world`-rank job on this host: rank r is the process
+    `argv_of(r, init)`, where `init` is the ``file://`` rendezvous that
+    every rank passes to ``init_process_group``. Each process finds the
+    port's sources on its path and keeps one OpenMP thread. Returns each
+    rank's (exit code, output), the output None unless `capture`. If a
+    rank outlives `timeout_s`, kills them all and raises TimeoutError."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]))
+    pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) if capture else {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [subprocess.Popen(argv_of(r, init), env=env, **pipe)
+                 for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+        except subprocess.TimeoutExpired:
+            raise TimeoutError(f"{world} ranks did not finish within "
+                               f"{timeout_s} s") from None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    return [(p.returncode, log) for p, log in zip(procs, logs)]

@@ -167,6 +167,7 @@ def _run_gcn(args, log) -> dict:
            "wire": pc.wire, "slice_boundary": pc.slice_boundary,
            "spmd": args.spmd, "parts_per_device": args.parts_per_device,
            "guard_exchange": pc.guard_exchange, "fault_rate": args.fault_rate,
+           "split_feasible": pipeline.split_spec() is not None,
            "elastic": bool(args.elastic), "anomalies": res.anomalies,
            "resumed_from": res.resumed_from, "recoveries": res.recoveries,
            "preempted": res.preempted, "final": res.final_metrics,

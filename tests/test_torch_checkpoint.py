@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 jax.config.update("jax_enable_x64", True)
 
 from repro.checkpoint import save_checkpoint as jsave  # noqa: E402

@@ -2,7 +2,8 @@
 (float32, ragged row counts and feature widths): the block-sparse SpMM
 pair, the fused aggregate+transform pair and the phased SpMM launches of
 the split-phase schedule; flash attention in float32 and bfloat16 at every
-head width it is built for; and the sim backend's exchange on a side CUDA
+head width it is built for; the kernels/ops.py entry points on one
+partition's streams; and the sim backend's exchange on a side CUDA
 stream. Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
 only the port's dependencies:
 
@@ -529,3 +530,63 @@ def test_cuda_flash_attention_is_deterministic(dtype):
         b = fa.flash_attention(q, k, v, causal=True, window=300, q_block=8,
                                kv_block=8)
         assert torch.equal(a, b), d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 128])
+def test_cuda_ops_entry_points_match_plain_and_the_stacked_launch(f):
+    """kernels/ops.py's six entry points on one partition's streams launch
+    the kernels once each (two per phased pair), match the plain versions
+    and equal partition 0 of the stacked wrappers' launch bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import ops
+    streams = _random_streams(300, 1000, 2000)
+    st = {k: torch.from_numpy(v).cuda() for k, v in streams.items()}
+    sch = _schedules(streams, 300, 1000)
+    fwd0 = [st[k][0] for k in ("rows", "cols", "vals")]
+    bwd0 = [st[k][0] for k in ("t_out", "t_in", "t_perm", "vals")]
+    fwd = [sch["work"], sch["items"]] + [st[k] for k in ("rows", "cols",
+                                                         "vals")]
+    bwd = [sch["t_work"], sch["t_items"]] + [
+        st[k] for k in ("t_out", "t_in", "t_perm", "vals")]
+    parts = streams["rows"].shape[0]
+    h = torch.randn(parts, 1000, f, device="cuda")
+    dz = torch.randn(parts, 300, f, device="cuda")
+    w = torch.randn(f, 24, device="cuda") / f ** 0.5
+    b = torch.randn(24, device="cuda")
+    du = torch.randn(parts, 300, 24, device="cuda")
+    cut = int((streams["rows"][0] >= 1).sum())      # rows from block 1 on
+    sp = gcn_spmm.SplitSpec(128, 128, cut, cut)
+    before = {k: getattr(gcn_spmm, k).launches for k in (
+        "spmm", "spmm_t", "spmm_fused", "spmm_fused_t", "spmm_phased")}
+    got = {"spmm": ops.spmm(*fwd0, h[0], 300),
+           "spmm_t": ops.spmm_t(*bwd0, dz[0], 1000),
+           "spmm_fused": ops.spmm_fused(*fwd0, h[0], w, b, 300)[0],
+           "spmm_fused_t": ops.spmm_fused_t(*bwd0, du[0], w, 1000),
+           "spmm_phased": ops.spmm_phased(*fwd0, h[0], 300, cut,
+                                          "boundary")[128:]}
+    after = {k: getattr(gcn_spmm, k).launches for k in before}
+    assert all(after[k] == before[k] + 1 for k in before), (before, after)
+    stacked = {"spmm": gcn_spmm.spmm(*fwd, h, 300),
+               "spmm_t": gcn_spmm.spmm_t(*bwd, dz, 1000),
+               "spmm_fused": gcn_spmm.spmm_fused(*fwd, h, w, b, 300)[0],
+               "spmm_fused_t": gcn_spmm.spmm_fused_t(*bwd, du, w, 1000),
+               "spmm_phased": gcn_spmm.spmm_phased(
+                   *fwd, h, 300, sp, "boundary")[:, 128:]}
+    plain_fwd = [st[k][:1] for k in ("rows", "cols", "vals")]
+    plain_bwd = [st[k][:1] for k in ("t_out", "t_in", "t_perm", "vals")]
+    plain = {"spmm": gcn_spmm.spmm_plain(*plain_fwd, h[:1], 300)[0],
+             "spmm_t": gcn_spmm.spmm_t_plain(*plain_bwd, dz[:1], 1000)[0],
+             "spmm_fused": gcn_spmm.spmm_fused_plain(*plain_fwd, h[:1], w, b,
+                                                     300)[0][0],
+             "spmm_fused_t": gcn_spmm.spmm_fused_t_plain(*plain_bwd, du[:1],
+                                                         w, 1000)[0],
+             "spmm_phased": gcn_spmm.spmm_plain(*plain_fwd, h[:1],
+                                                300)[0][128:]}
+    for k, g in got.items():
+        assert torch.equal(g, stacked[k][0]), k
+        if k.startswith("spmm_fused"):
+            gcn_spmm.assert_close_to_scale(g, plain[k], k)
+        else:
+            torch.testing.assert_close(g, plain[k], rtol=1e-5, atol=1e-5)

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 jax.config.update("jax_enable_x64", True)
 
 from _hypothesis_compat import given, settings, st  # noqa: E402

@@ -11,15 +11,15 @@ rank 1 and the recovery equals the fresh launch; a bounded outage of
 device 2 recovers and rejoins, as on the sim backend. Every rank returns
 the same parameters, history and anomalies.
 """
-import os
-import subprocess
 import sys
 import textwrap
 
 import pytest
 import torch
 
-ROOT = os.path.join(os.path.dirname(__file__), "..")
+import _torch_threads  # noqa: F401
+from repro_torch.launch.mesh import run_ranks
+
 JOIN_TIMEOUT_S = 120
 WORLD = 4
 
@@ -29,8 +29,8 @@ WORKER = textwrap.dedent('''
     import torch.distributed as dist
     torch.set_num_threads(1)
     rank, world = int(sys.argv[1]), int(sys.argv[2])
-    store, out = sys.argv[3:5]
-    dist.init_process_group("gloo", init_method="file://" + store,
+    init, out = sys.argv[3:5]
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=world)
     from repro_torch.core import (ElasticConfig, ElasticPlan, FaultPlan,
                                   ModelConfig, PipeConfig, device_down_site,
@@ -99,25 +99,12 @@ WORKER = textwrap.dedent('''
 def ranks(tmp_path_factory):
     """Every rank's results of the three drills (one gloo job)."""
     out = tmp_path_factory.mktemp("elastic_gloo")
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
-                                           os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(rank), str(WORLD),
-         str(out / "rendezvous"), str(out)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        pytest.fail(f"gloo ranks did not finish within {JOIN_TIMEOUT_S} s")
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{log}"
+    ranks = run_ranks(
+        lambda rank, init: [sys.executable, "-c", WORKER, str(rank),
+                            str(WORLD), init, str(out)], WORLD,
+        JOIN_TIMEOUT_S, capture=True)
+    for rank, (code, log) in enumerate(ranks):
+        assert code == 0, f"rank {rank} failed:\n{log}"
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(WORLD)]
 

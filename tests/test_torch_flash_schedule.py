@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import tf32
 

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 from repro_torch.data import GraphDataPipeline
 from repro_torch.kernels import gcn_spmm, tf32
 

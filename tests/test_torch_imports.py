@@ -1,5 +1,7 @@
-"""The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke`` loads neither JAX nor anything of the JAX package."""
+"""The port stands alone: importing every ``repro_torch`` module,
+``chip_smoke`` and the torch examples (``examples/torch_*.py``) loads
+neither JAX nor anything of the JAX package."""
+import glob
 import os
 import pkgutil
 import subprocess
@@ -10,12 +12,16 @@ import pytest
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 PROBE = """
-import importlib, pkgutil, sys
+import glob, importlib, importlib.util, pkgutil, sys
 import repro_torch
 names = ["chip_smoke", "repro_torch"] + [
     m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for path in sorted(glob.glob("examples/torch_*.py")):
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
@@ -34,13 +40,31 @@ def test_port_imports_neither_jax_nor_repro():
     import repro_torch
     expected = 2 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")))
+    expected += len(EXAMPLES)
     assert int(proc.stdout.split()[-1]) == expected
 
 
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
+
+
+def test_probe_imports_every_torch_example():
+    """The four torch examples are among the files the probe loads."""
+    assert [os.path.basename(p) for p in EXAMPLES] == [
+        "torch_pipegcn_spmd.py", "torch_quickstart.py",
+        "torch_stale_halo_transformer.py", "torch_train_reddit_sim.py"]
+
+
 @pytest.mark.parametrize("name", ["repro_torch.core.elastic",
-                                  "repro_torch.launch.mesh"])
+                                  "repro_torch.launch.mesh",
+                                  "repro_torch.core.module",
+                                  "repro_torch.kernels.ops",
+                                  "repro_torch.launch.check_schedule",
+                                  "repro_torch.models.halo",
+                                  "repro_torch.optim.optimizers",
+                                  "repro_torch.analysis.cost"])
 def test_probe_walks_the_elastic_modules(name):
-    """The elastic runtime's modules are among those the probe imports."""
+    """The elastic runtime's modules, and those of the GCN-side API, are
+    among those the probe imports."""
     import repro_torch
     assert name in {m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")}

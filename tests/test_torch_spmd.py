@@ -12,8 +12,6 @@ guarded exchange, fault plans and checkpoints cross the backends
 bitwise. The exchange helpers are checked against the JAX package's
 arrays.
 """
-import os
-import subprocess
 import sys
 import textwrap
 
@@ -22,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import _torch_threads  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
 
@@ -32,8 +32,8 @@ from repro_torch.core.pipegcn import (SpmdBackend, _hier_pack,  # noqa: E402
                                       hierarchical_exchange_host)
 from repro_torch.data.graph_pipeline import (from_local_layout,  # noqa: E402
                                              rank_view, to_local_layout)
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
 
-ROOT = os.path.join(os.path.dirname(__file__), "..")
 JOIN_TIMEOUT_S = 120
 
 # (engine, variant, overlap, fuse_exchange): unsplit and split schedules,
@@ -56,9 +56,9 @@ WORKER = textwrap.dedent('''
     import torch.distributed as dist
     torch.set_num_threads(1)
     rank, world, n_local = (int(a) for a in sys.argv[1:4])
-    store, out = sys.argv[4:6]
+    init, out = sys.argv[4:6]
     configs = eval(sys.argv[6])
-    dist.init_process_group("gloo", init_method="file://" + store,
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=world)
     from repro_torch.core import (HealthConfig, ModelConfig, PipeConfig,
                                   PipeGCN, train_pipegcn)
@@ -130,8 +130,8 @@ FAULT_WORKER = textwrap.dedent('''
     import torch.distributed as dist
     torch.set_num_threads(1)
     rank, world, n_local = (int(a) for a in sys.argv[1:4])
-    store, out = sys.argv[4:6]
-    dist.init_process_group("gloo", init_method="file://" + store,
+    init, out = sys.argv[4:6]
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=world)
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.core import ModelConfig, PipeConfig, PipeGCN, train_pipegcn
@@ -209,26 +209,13 @@ FAULT_WORKER = textwrap.dedent('''
 
 def _launch(tmp_path, world, n_local, configs=CONFIGS, worker=WORKER):
     """Run `worker` on `world` ranks; fail (and kill them) on a hang."""
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
-                                           os.environ.get("PYTHONPATH", "")]))
-    store = str(tmp_path / "rendezvous")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", worker, str(rank), str(world), str(n_local),
-         store, str(tmp_path), repr(configs)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        pytest.fail(f"gloo ranks did not finish within {JOIN_TIMEOUT_S} s")
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{log}"
+    ranks = run_ranks(
+        lambda rank, init: [sys.executable, "-c", worker, str(rank),
+                            str(world), str(n_local), init, str(tmp_path),
+                            repr(configs)], world, JOIN_TIMEOUT_S,
+        capture=True)
+    for rank, (code, log) in enumerate(ranks):
+        assert code == 0, f"rank {rank} failed:\n{log}"
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
 

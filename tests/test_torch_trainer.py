@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 jax.config.update("jax_enable_x64", True)
 
 from repro.core.config import ModelConfig as JModelConfig  # noqa: E402
@@ -172,6 +174,31 @@ def _jax_launcher_flags() -> dict:
         flags[flag] = (False if 'action="store_true"' in head
                        else ast.literal_eval(default.group(1)))
     return flags
+
+
+def _jax_result_keys() -> set:
+    """The keys of the dict the JAX launcher's `run_gcn` returns, read
+    from the text of its `out = {...}` literal, so that JAX is not
+    imported."""
+    text = (Path(__file__).resolve().parents[1] / "src" / "repro" / "launch"
+            / "train.py").read_text()
+    literal = text.split("def run_gcn(")[1].split("out = {", 1)[1]
+    return set(re.findall(r'"(\w+)":', literal.split("}", 1)[0]))
+
+
+def test_cli_result_has_every_jax_result_key(capsys):
+    """F3: the port's CLI result has every key of the JAX launcher's
+    `run_gcn` result (split_feasible included), plus its own `device`."""
+    keys = _jax_result_keys()
+    assert {"split_feasible", "history", "final", "anomalies"} <= keys
+    assert len(keys) >= 24, sorted(keys)
+    for dataset, feasible in (("grid-tiny", True), ("tiny", False)):
+        out = main(["--device", "cpu", "--dataset", dataset, "--epochs", "1",
+                    "--agg", "blocksparse", "--eval-every", "1"])
+        assert keys <= set(out), sorted(keys - set(out))
+        assert set(out) - keys == {"device"}
+        assert out["split_feasible"] is feasible
+    capsys.readouterr()
 
 
 # (flag, value or None for a store_true flag, ROADMAP Queue 1 item)
