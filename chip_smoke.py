@@ -228,6 +228,48 @@ Phases, in order; any failure ends the run with a non-zero exit:
                backend and on one NCCL rank holding 4 partitions;
              - examples: torch_quickstart (3 epochs) and
                torch_stale_halo_transformer (20 steps) on the card.
+  7e. serve  the LM zoo's serve path (models/model.py LM.prefill /
+             decode_step, launch/serve.py; plain PyTorch, no custom
+             kernel, as in JAX); every line carries the card's name and
+             power limit:
+             - f32: qwen3-8b at full width and depth (36 layers, 8.20 B
+               parameters) drawn on the card by LM.init_params, batch 4,
+               prompt 64, 32 greedy decode steps: prefill's last logits
+               vs forward_logits on the prompt (atol = rtol = 2e-4) and
+               the decode logits of steps 0, 15 and 31 vs forward_logits
+               on the prompt plus the tokens fed so far (3e-3 of the
+               max-abs logit): tests/test_models_decode.py's bars; the f32
+               prefill timed (TF32 off);
+             - bf16: the same weights cast in place, served through
+               serve_with (after a 4-step warm-up; it donates its caches,
+               so each step writes its slot in place): prefill ms, decode
+               ms per step and tok/s, the step's bytes bound (every weight
+               but the embedding table, its 4 rows, the caches once and
+               the logits, at 3.35 TB/s) and its share, the kernels and
+               copies of one profiled decode step, the peak memory, the
+               greedy tokens (its first 8 equal to serve_with's); decode
+               logits at the three steps vs bf16 forward_logits within
+               5e-2 of the max-abs logit, finite; then decode steps with
+               caches of 32768 slots (qwen3-8b's context, 19.3 GB of KV),
+               donated and copied (the default) in turns: ms per step,
+               device busy, peak memory and the bound of each; then the
+               model is freed;
+             - mixers: mamba2-780m (SSD, prompt 300: two 256-token chunks
+               and a ragged tail), recurrentgemma-2b (RG-LRU), granite-
+               moe-1b-a400m (MoE), whisper-large-v3 (enc-dec, 1500
+               frames) at full width and depth, deepseek-v2-236b (MLA,
+               160 experts) at its published widths cut to 3 layers and
+               llama-3.2-vision-11b (gated cross-attention, gates set to
+               0.5) cut to 10, each in f32, drawn on the card, held to
+               forward_logits at the f32 bars above (8 decode steps,
+               steps 0, 3 and 7 checked) and freed; an MoE arch serves
+               twice and repeats its logits bit for bit;
+             - reduced: all ten archs through serve on the card, then the
+               same parameters (drawn on the card) on the card and the
+               CPU: prefill logits, every cache leaf and 4 decode steps'
+               logits within 1e-4 in relative norm, the MoE routing
+               indices equal, an MoE arch's card run repeated bit for
+               bit.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -1730,14 +1772,17 @@ def _wire_train(reddit, grid, runs, card):
     return out
 
 
-def _device_kernels(step, state) -> dict:
-    """Device kernels and copies of one profiled step: name -> (count,
-    ms)."""
+def _device_kernels(fn) -> dict:
+    """Device kernels and copies of one profiled call of fn: name ->
+    (count, ms)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _timed_steps(step, state, 1)
+        fn()
+        torch.cuda.synchronize()
     return {e.key: (e.count, getattr(e, "self_device_time_total",
                                      getattr(e, "self_cuda_time_total", 0))
                     / 1e3)
@@ -1747,7 +1792,7 @@ def _device_kernels(step, state) -> dict:
 
 def _device_launches(step, state) -> tuple[int, float]:
     """Device kernels and copies (count, busy ms) of one profiled step."""
-    kernels = _device_kernels(step, state)
+    kernels = _device_kernels(lambda: _timed_steps(step, state, 1))
     return (sum(n for n, _ in kernels.values()),
             sum(ms for _, ms in kernels.values()))
 
@@ -2152,7 +2197,8 @@ def _faults_step_times(reddit, card):
     times = {"guarded": [], "unguarded": []}
     for name in ("guarded", "unguarded", "unguarded", "guarded"):
         times[name] += _timed_steps(*state[name], 10)
-    prof = {n: _device_kernels(*state[n]) for n in times}
+    prof = {n: _device_kernels(lambda: _timed_steps(*state[n], 1))
+            for n in times}
     out = {}
     for name, ts in times.items():
         q = sorted(ts)
@@ -3254,6 +3300,478 @@ def phase_attention():
     return rows, dict(launches=launches)
 
 
+# ---------------------------------------------------------------------
+# The LM zoo's serve path: qwen3-8b at full width and depth, and the ten
+# reduced archs card against CPU
+# ---------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+SERVE_PREFILL_TOL = 2e-4       # tests/test_models_decode.py's bars
+SERVE_DECODE_TOL = 3e-3        # of the max-abs logit
+SERVE_BF16_TOL = 5e-2          # bf16 decode vs bf16 forward, of max-abs
+SERVE_CARD_CPU_REL = 1e-4      # reduced archs: card vs CPU, relative norm
+SERVE_REDUCED_STEPS = 4
+SERVE_LONG, SERVE_LONG_STEPS = 32768, 6    # qwen3-8b's context length
+# the other mixers at their published widths, in f32: (arch, layers kept
+# or None for all, batch, prompt, decode steps)
+SERVE_MIXERS = (
+    ("mamba2-780m", None, 2, 300, 8),           # SSD: 2 chunks of 256
+    ("recurrentgemma-2b", None, 2, 64, 8),      # RG-LRU, local MQA
+    ("granite-moe-1b-a400m", None, 4, 64, 8),   # MoE: 32 experts, top-8
+    ("whisper-large-v3", None, 2, 64, 8),       # enc-dec, 1500 frames
+    ("deepseek-v2-236b", 3, 2, 64, 8),          # MLA, 160 experts
+    ("llama-3.2-vision-11b", 10, 2, 64, 8),     # gated cross-attention
+)
+
+
+def _tree_bytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _cast_(tree, dtype):
+    """Cast every leaf of a dict / list tree to `dtype` in place, leaf by
+    leaf, so each f32 leaf is freed as its bf16 copy is made."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            _cast_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+            del v
+
+
+def _memory_inputs(cfg, b: int, seed: int) -> dict:
+    """numpy-seeded audio frames (enc-dec) or image tokens (VLM) on the
+    card, f32, where the arch reads them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.is_encdec:
+        out["audio_embed"] = rng.standard_normal(
+            (b, cfg.num_audio_frames, cfg.d_model))
+    if cfg.num_image_tokens:
+        out["image_embed"] = rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.d_model))
+    return {k: torch.from_numpy(v).float().cuda() for k, v in out.items()}
+
+
+def _greedy_run(lm, params, batch, gen: int):
+    """Prefill `batch` (tokens (B, S) and any memory) into caches the run
+    owns, so donated as serve_with donates them, and decode greedily for
+    `gen` steps: (prefill's last logits, [logits of each step], [fed
+    tokens])."""
+    import torch
+    tokens = batch["tokens"]
+    caches = lm.init_caches(tokens.shape[0], tokens.shape[1] + gen,
+                            tokens.device)
+    last, caches = lm.prefill(params, batch, caches, donate=True)
+    logits, fed, out = last, [], []
+    for i in range(gen):
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        fed.append(tok)
+        logits, caches = lm.decode_step(params, tok, caches,
+                                        tokens.shape[1] + i, donate=True)
+        out.append(logits)
+    return last, out, fed
+
+
+def _forward_last(lm, params, batch):
+    return lm.forward_logits(params, batch, moe_dropless=True)[0][:, -1]
+
+
+def _scaled_err(got, want, vocab: int) -> float:
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def _decode_checks(lm, params, batch, out, fed, tol, what, card):
+    """The logits of the first, middle and last decode step against
+    forward_logits on the prompt plus the tokens fed so far, as a share of
+    the max-abs logit."""
+    import torch
+    errs = {}
+    n = len(out)
+    for i in sorted({0, n // 2 - 1, n - 1}):
+        seq = torch.cat([batch["tokens"]] + fed[:i + 1], dim=1)
+        full = _forward_last(lm, params, dict(batch, tokens=seq))
+        got = out[i][:, 0]
+        assert bool(torch.isfinite(got[..., :lm.cfg.vocab_size]).all()), (
+            what, i)
+        errs[i] = _scaled_err(got, full, lm.cfg.vocab_size)
+        assert errs[i] < tol, (what, i, errs[i], tol)
+    log(f"serve {what} [{card}]: decode logits vs forward_logits at steps "
+        f"{list(errs)}: max-abs-scaled err "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (bar {tol}) OK")
+    return errs
+
+
+def _f32_checks(lm, params, batch, gen: int, what, card):
+    """A greedy prefill + `gen` decode steps, then prefill's last logits
+    against forward_logits on the prompt (atol = rtol = SERVE_PREFILL_TOL)
+    and the checked steps' logits (SERVE_DECODE_TOL of the max-abs logit):
+    (last, out, fed, seconds of the greedy run, the errors)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, out, fed = _greedy_run(lm, params, batch, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    full = _forward_last(lm, params, batch)
+    v = lm.cfg.vocab_size
+    err = float((last[:, 0, :v] - full[:, :v]).abs().max())
+    torch.testing.assert_close(last[:, 0, :v], full[:, :v],
+                               atol=SERVE_PREFILL_TOL, rtol=SERVE_PREFILL_TOL)
+    log(f"serve {what} [{card}]: prefill last logits vs forward_logits: "
+        f"max abs err {err:.3e} (atol = rtol = {SERVE_PREFILL_TOL}) OK")
+    errs = _decode_checks(lm, params, batch, out, fed, SERVE_DECODE_TOL,
+                          what, card)
+    return last, out, fed, secs, dict(prefill_abs_err=err, decode_errs=errs)
+
+
+def _step_stats(kernels: dict) -> dict:
+    """A _device_kernels map summed: kernels and copies (counts), device
+    busy ms and the ten most launched."""
+    copies = sum(n for k, (n, _) in kernels.items()
+                 if k.startswith(("Memcpy", "Memset")))
+    top = sorted(((k[:60], n) for k, (n, _) in kernels.items()),
+                 key=lambda kv: -kv[1])[:10]
+    return dict(kernels=sum(n for n, _ in kernels.values()) - copies,
+                copies=copies, top=top,
+                busy_ms=sum(ms for _, ms in kernels.values()))
+
+
+def _step_bytes(lm, params, caches, batch: int) -> int:
+    """The bytes a decode step must move: every weight but the embedding
+    table, its `batch` rows, every cache byte once, the logits."""
+    table = params["embed"]["table"]
+    return (_tree_bytes(params) - table.numel() * table.element_size()
+            + batch * lm.cfg.d_model * table.element_size()
+            + _tree_bytes(caches)
+            + batch * lm.cfg.padded_vocab * table.element_size())
+
+
+def _decode_long(lm, params, prompts, card):
+    """bf16 decode steps against caches of SERVE_LONG slots (qwen3-8b's
+    context; the step attends over every slot, as JAX's does), the caches
+    donated (serve_with) and copied (the default) in turns: ms per step,
+    one profiled step each, the peak memory over what was allocated
+    before, and the bound (a copy moves the cache twice more)."""
+    import torch
+    b, s = prompts.shape
+    times = {"donated": [], "copied": []}
+    prof, peak = {}, {}
+    base = torch.cuda.memory_allocated()
+    for name in ("donated", "copied", "copied", "donated"):
+        donate = name == "donated"
+        torch.cuda.reset_peak_memory_stats()
+        caches = lm.init_caches(b, SERVE_LONG, "cuda")
+        _, caches = lm.prefill(params, {"tokens": prompts}, caches,
+                               donate=True)
+        tok = prompts[:, -1:]
+        for i in range(SERVE_LONG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, caches = lm.decode_step(params, tok, caches, s + i,
+                                       donate=donate)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        if name not in prof:
+            prof[name] = _step_stats(_device_kernels(
+                lambda: lm.decode_step(params, tok, caches,
+                                       s + SERVE_LONG_STEPS, donate=donate)))
+        peak[name] = max(peak.get(name, 0),
+                         torch.cuda.max_memory_allocated() - base)
+        cache_bytes = _tree_bytes(caches)
+        step_bytes = _step_bytes(lm, params, caches, b)
+        del caches
+    out = {}
+    for name, ts in times.items():
+        q = sorted(ts[1:SERVE_LONG_STEPS] + ts[SERVE_LONG_STEPS + 1:])
+        moved = step_bytes + (2 * cache_bytes if name == "copied" else 0)
+        out[name] = dict(median_ms=(q[len(q) // 2 - 1] + q[len(q) // 2]) / 2,
+                         min_ms=q[0], max_ms=q[-1],
+                         bound_ms=moved / PEAK_BYTES * 1e3,
+                         busy_ms=prof[name]["busy_ms"],
+                         kernels=prof[name]["kernels"],
+                         copies=prof[name]["copies"],
+                         peak_over_weights_gb=peak[name] / 1e9)
+    out["cache_gb"] = cache_bytes / 1e9
+    log(f"serve bf16 long cache [{card}]: {SERVE_ARCH} batch {b}, "
+        f"{SERVE_LONG} cache slots ({cache_bytes / 1e9:.3f} GB of KV), "
+        f"{SERVE_LONG_STEPS} steps x 2 each (the first of each run not "
+        f"counted): {json.dumps(out)}")
+    return out
+
+
+def _serve_full(card):
+    """qwen3-8b at full width and depth: f32 checks, then the same weights
+    in bf16 through serve_with with its times, launches and bound, and the
+    decode step at the model's context length."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.launch.serve import serve_with
+    from repro_torch.models.model import LM
+    cfg = get_arch(SERVE_ARCH)
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    max_len = SERVE_PROMPT + SERVE_GEN
+    t0 = time.perf_counter()
+    params = lm32.init_params(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"serve f32 [{card}]: {SERVE_ARCH} full width, {cfg.num_layers} "
+        f"layers, {n_params:,} parameters ({_tree_bytes(params) / 1e9:.2f} "
+        f"GB f32) drawn on the card in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    with torch.inference_mode():
+        last, out, fed, f32_s, _ = _f32_checks(
+            lm32, params, {"tokens": prompts}, SERVE_GEN, "f32", card)
+        prefill_ms = cuda_time_ms(lambda: lm32.prefill(
+            params, {"tokens": prompts},
+            lm32.init_caches(SERVE_BATCH, max_len, "cuda"), donate=True), 2)
+    flops = 2 * n_params * SERVE_BATCH * SERVE_PROMPT
+    log(f"serve f32 [{card}]: prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+        f"{prefill_ms:.3f} ms ({flops / prefill_ms / 1e9:.1f} TFLOP/s at "
+        f"2·params·tokens = {flops / 1e12:.2f} TFLOP; TF32 off), greedy "
+        f"prefill + {SERVE_GEN} steps {f32_s:.3f} s, tokens[0] "
+        f"{torch.cat(fed, 1)[0, :8].tolist()}")
+    del last, out
+
+    _cast_(params, torch.bfloat16)
+    torch.cuda.empty_cache()
+    lm16 = LM(cfg)
+    assert lm16.dtype == torch.bfloat16
+    weight_bytes = _tree_bytes(params)
+    base = torch.cuda.memory_allocated()
+    serve_with(lm16, params, SERVE_BATCH, SERVE_PROMPT, 4)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_with(lm16, params, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        _, out, fed = _greedy_run(lm16, params, {"tokens": prompts},
+                                  SERVE_GEN)
+        tokens = torch.cat(fed, 1)
+        assert tokens[0, :8].tolist() == res["sample_output"], (
+            tokens[0, :8].tolist(), res["sample_output"])
+        errs = _decode_checks(lm16, params, {"tokens": prompts}, out, fed,
+                              SERVE_BF16_TOL, "bf16", card)
+        caches = lm16.init_caches(SERVE_BATCH, max_len, "cuda")
+        _, caches = lm16.prefill(params, {"tokens": prompts}, caches,
+                                 donate=True)
+        step = _step_stats(_device_kernels(lambda: lm16.decode_step(
+            params, fed[0], caches, SERVE_PROMPT, donate=True)))
+        bound_ms = (_step_bytes(lm16, params, caches, SERVE_BATCH)
+                    / PEAK_BYTES * 1e3)
+        long = _decode_long(lm16, params, prompts, card)
+    row = dict(weights_gb=weight_bytes / 1e9, prefill_ms=res["prefill_ms"],
+               decode_ms_per_step=res["decode_ms_per_step"],
+               tok_per_s=SERVE_BATCH * 1e3 / res["decode_ms_per_step"],
+               bound_ms=bound_ms, cache_gb=_tree_bytes(caches) / 1e9,
+               bound_all_weights_ms=weight_bytes / PEAK_BYTES * 1e3,
+               bound_share=bound_ms / res["decode_ms_per_step"],
+               step_kernels=step["kernels"], step_copies=step["copies"],
+               step_busy_ms=step["busy_ms"],
+               kernels_per_layer=step["kernels"] / cfg.num_layers,
+               step_top=step["top"],
+               peak_gb=peak / 1e9, allocated_before_gb=base / 1e9,
+               decode_errs=errs, long_cache=long,
+               tokens=tokens[0].tolist())
+    log(f"serve bf16 [{card}]: {SERVE_ARCH} batch {SERVE_BATCH} prompt "
+        f"{SERVE_PROMPT} gen {SERVE_GEN} through serve_with (caches "
+        f"donated): prefill {row['prefill_ms']:.3f} ms, decode "
+        f"{row['decode_ms_per_step']:.3f} ms/step ({row['tok_per_s']:.1f} "
+        f"tok/s), bound {bound_ms:.3f} ms (bytes: weights but the embedding "
+        f"table, its {SERVE_BATCH} rows, the caches once "
+        f"({row['cache_gb']:.4f} GB), the logits; all weights "
+        f"{row['bound_all_weights_ms']:.3f} ms) = {row['bound_share']:.1%} "
+        f"of the step; one profiled step {step['kernels']} kernels + "
+        f"{step['copies']} copies ({row['kernels_per_layer']:.1f} kernels "
+        f"per layer), device busy {step['busy_ms']:.3f} ms; peak memory "
+        f"{row['peak_gb']:.2f} GB ({row['allocated_before_gb']:.2f} GB "
+        f"allocated before); greedy tokens[0] {row['tokens']}")
+    log(f"serve bf16 [{card}]: the profiled step's most launched device "
+        f"ops: {step['top']}")
+    del params, caches, out
+    return row
+
+
+def _serve_mixers(card):
+    """The other mixers at their published widths in f32 (SERVE_MIXERS),
+    each drawn on the card, checked as qwen3-8b is and freed; an MoE arch
+    serves twice and must repeat its logits bit for bit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.models.model import LM
+    rows = {}
+    for arch, layers, b, prompt, gen in SERVE_MIXERS:
+        t0 = time.perf_counter()
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, dtype="float32",
+                                  num_layers=layers or full.num_layers)
+        lm = LM(cfg)
+        params = lm.init_params(torch.Generator("cuda").manual_seed(0))
+        gated = 0
+        for gp, (spec, _) in zip(params["layers"], lm.groups):
+            if spec.mixer == "xattn":     # a zero gate hides the layer
+                gp["mixer"]["gate"].fill_(0.5)
+                gated += 1
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        depth = (f"{layers} of its {full.num_layers} layers (depth cut "
+                 f"only)" if layers else f"all {cfg.num_layers} layers")
+        gates = f", {gated} cross-attention gates set to 0.5" if gated else ""
+        log(f"serve f32 [{card}]: {arch} at its published widths, {depth}"
+            f"{gates}, {n_params:,} parameters "
+            f"({_tree_bytes(params) / 1e9:.2f} GB f32), batch {b}, prompt "
+            f"{prompt}, {gen} decode steps")
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                   (b, prompt))
+        batch = {"tokens": torch.from_numpy(tokens).cuda(),
+                 **_memory_inputs(cfg, b, 1)}
+        with torch.inference_mode():
+            last, out, fed, secs, row = _f32_checks(lm, params, batch, gen,
+                                                    f"f32 {arch}", card)
+            if cfg.num_experts:
+                again, out2, _ = _greedy_run(lm, params, batch, gen)
+                assert torch.equal(again, last) and all(
+                    torch.equal(a, o) for a, o in zip(out2, out)), arch
+                log(f"serve f32 {arch} [{card}]: a second greedy run "
+                    f"repeats every logit bit for bit OK")
+        rows[arch] = dict(row, layers=cfg.num_layers, params=n_params,
+                          greedy_s=secs, tokens=torch.cat(fed, 1)[0].tolist())
+        del params, last, out, fed
+        torch.cuda.empty_cache()
+        log(f"serve f32 {arch} [{card}]: greedy prefill + {gen} steps "
+            f"{secs:.3f} s; freed, {time.perf_counter() - t0:.1f} s in all")
+    return rows
+
+
+def _reduced_run(lm, params, batch, steps, dev):
+    """Prefill `batch` and decode the given tokens (numpy) on `dev`,
+    recording every MoE routing: the logits of prefill and of every step,
+    the caches after prefill and after the last step, and the routes."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.models import moe
+    route, routes = moe.route, []
+
+    def recording(*a, **k):
+        out = route(*a, **k)
+        routes.append(out[2].cpu())
+        return out
+    moe.route = recording
+    try:
+        b = {k: (torch.from_numpy(x).to(dev) if k == "tokens" else
+                 torch.from_numpy(x).float().to(dev))
+             for k, x in batch.items()}
+        with torch.inference_mode():
+            caches = lm.init_caches(SERVE_BATCH, SERVE_PROMPT
+                                    + SERVE_REDUCED_STEPS, dev)
+            last, caches = lm.prefill(params, b, caches)
+            logits = [last]
+            prefill_caches = tree_leaves(caches)
+            for i in range(SERVE_REDUCED_STEPS):
+                out, caches = lm.decode_step(
+                    params, torch.from_numpy(steps[:, i:i + 1]).to(dev),
+                    caches, SERVE_PROMPT + i)
+                logits.append(out)
+    finally:
+        moe.route = route
+    v = lm.cfg.vocab_size
+    return dict(logits=[x[..., :v] for x in logits],
+                caches=prefill_caches + tree_leaves(caches), routes=routes)
+
+
+def _serve_reduced(card):
+    """The ten archs, reduced, through serve on the card; then the same
+    parameters (drawn on the card as serve draws them) on the card and the
+    CPU: prefill logits, every cache leaf, and SERVE_REDUCED_STEPS decode
+    steps' logits within SERVE_CARD_CPU_REL; MoE routing indices equal,
+    and an MoE arch's card run repeated bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.launch.serve import serve
+    from torch.utils._pytree import tree_map
+    from repro_torch.models.model import LM
+    rows = {}
+    for arch in ARCH_IDS:
+        res = serve(arch, True, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
+                    device="cuda")
+        lm = LM(get_arch(arch).reduced())
+        cfg, v = lm.cfg, lm.cfg.vocab_size
+        card_params = lm.init_params(torch.Generator("cuda").manual_seed(0))
+        host_params = tree_map(lambda x: x.cpu(), card_params)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": rng.integers(0, v, (SERVE_BATCH, SERVE_PROMPT))}
+        if cfg.is_encdec:
+            batch["audio_embed"] = rng.standard_normal(
+                (SERVE_BATCH, cfg.num_audio_frames, cfg.d_model))
+        if cfg.num_image_tokens:
+            batch["image_embed"] = rng.standard_normal(
+                (SERVE_BATCH, cfg.num_image_tokens, cfg.d_model))
+        steps = rng.integers(0, v, (SERVE_BATCH, SERVE_REDUCED_STEPS))
+        seen = {dev: _reduced_run(lm, params, batch, steps, dev)
+                for dev, params in (("cuda", card_params),
+                                    ("cpu", host_params))}
+        errs = {}
+        for what in ("logits", "caches"):
+            pairs = list(zip(seen["cuda"][what], seen["cpu"][what]))
+            assert len(pairs) == len(seen["cpu"][what])
+            errs[what] = max(_rel_close(a.cpu(), b, f"serve {arch} {what}",
+                                        SERVE_CARD_CPU_REL) for a, b in pairs)
+        routes = seen["cuda"]["routes"]
+        assert len(routes) == len(seen["cpu"]["routes"])
+        assert all(torch.equal(a, b) for a, b in zip(routes,
+                                                     seen["cpu"]["routes"]))
+        assert (len(routes) > 0) == bool(cfg.num_experts), (arch, len(routes))
+        repeat = ""
+        if cfg.num_experts:
+            again = _reduced_run(lm, card_params, batch, steps, "cuda")
+            for what in ("logits", "caches", "routes"):
+                assert all(torch.equal(a, b) for a, b in zip(
+                    again[what], seen["cuda"][what])), (arch, what)
+            repeat = ", a second card run repeats it bit for bit"
+        rows[arch] = dict(prefill_ms=res["prefill_ms"],
+                          decode_ms_per_step=res["decode_ms_per_step"],
+                          sample_output=res["sample_output"],
+                          routing_calls=len(routes), **errs)
+        log(f"serve reduced [{card}]: {arch} serve prefill "
+            f"{res['prefill_ms']:.3f} ms, decode "
+            f"{res['decode_ms_per_step']:.3f} ms/step, tokens "
+            f"{res['sample_output']}; card vs CPU: logits {errs['logits']:.2e}"
+            f", caches {errs['caches']:.2e} (bar {SERVE_CARD_CPU_REL}), "
+            f"routing {len(routes)} calls equal{repeat} OK")
+    return rows
+
+
+def phase_serve():
+    """The LM serve path on the card (see the module docstring, 7e)."""
+    import torch
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    torch.cuda.empty_cache()
+    full = _serve_full(card)
+    torch.cuda.empty_cache()
+    log(f"serve: {SERVE_ARCH} freed, {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB still allocated; full-width part {time.perf_counter() - t0:.1f}"
+        f" s")
+    mixers = _serve_mixers(card)
+    reduced = _serve_reduced(card)
+    log(f"serve [{card}]: " + json.dumps(dict(full=full, mixers=mixers,
+                                              reduced=reduced)))
+    log(f"serve: phase took {time.perf_counter() - t0:.1f} s")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3312,6 +3830,7 @@ def main(argv) -> int:
     phase_faults(reddit)
     runs.update(phase_elastic(reddit)[1])
     runs.update(phase_api(reddit, split_pipes))
+    phase_serve()
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

@@ -218,21 +218,22 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _write_slot(cache, new, slot: int):
-    """A copy of `cache` with `new` (B, n, K, hd) written from `slot` on;
-    the start is clamped so the update fits, as jax.lax's
-    dynamic_update_slice does."""
+def _write_slot(cache, new, slot: int, inplace: bool = False):
+    """`cache` with `new` (B, n, K, hd) written from `slot` on: a copy, or
+    `cache` itself when `inplace`; the start is clamped so the update fits,
+    as jax.lax's dynamic_update_slice does."""
     start = min(max(slot, 0), cache.shape[1] - new.shape[1])
-    out = cache.clone()
+    out = cache if inplace else cache.clone()
     out[:, start:start + new.shape[1]] = new
     return out
 
 
 def decode_attention(p, cfg: ArchConfig, x, cache, pos: int,
-                     use_rope: bool = True):
+                     use_rope: bool = True, inplace: bool = False):
     """One-token decode: x (B,1,D); cache holds `pos` previous tokens.
 
-    Returns (out, new_cache).  Ring-buffer writes when sliding_window is set.
+    Returns (out, new_cache).  Ring-buffer writes when sliding_window is set;
+    with `inplace` the new token is written into `cache`, which is returned.
     """
     b = x.shape[0]
     pos = int(pos)
@@ -243,8 +244,8 @@ def decode_attention(p, cfg: ArchConfig, x, cache, pos: int,
         q = apply_rope(q, posv, cfg.rope_theta)
         k_new = apply_rope(k_new, posv, cfg.rope_theta)
     slot = (pos % length) if cfg.sliding_window else pos
-    k_cache = _write_slot(cache["k"], k_new, slot)
-    v_cache = _write_slot(cache["v"], v_new, slot)
+    k_cache = _write_slot(cache["k"], k_new, slot, inplace)
+    v_cache = _write_slot(cache["v"], v_new, slot, inplace)
     scores = _gqa_scores(q, k_cache).to(torch.float32)   # (B,1,K,G,T)
     idx = torch.arange(length, device=x.device)
     if cfg.sliding_window:
@@ -261,8 +262,10 @@ def decode_attention(p, cfg: ArchConfig, x, cache, pos: int,
     return out, {"k": k_cache, "v": v_cache}
 
 
-def prefill_attention(p, cfg: ArchConfig, x, positions, cache, use_rope=True):
-    """Full-sequence (causal) attention that also fills the KV cache."""
+def prefill_attention(p, cfg: ArchConfig, x, positions, cache, use_rope=True,
+                      inplace: bool = False):
+    """Full-sequence (causal) attention that also fills the KV cache (a
+    copy, or `cache` itself when `inplace`)."""
     q, k, v = _project_qkv(p, cfg, x, x)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -276,11 +279,12 @@ def prefill_attention(p, cfg: ArchConfig, x, positions, cache, use_rope=True):
     if cfg.sliding_window and length < s:
         # ring layout: absolute position t sits at slot t % length
         slots = (torch.arange(length, device=x.device) + (s - length)) % length
-        k_cache = torch.zeros_like(cache["k"])
-        v_cache = torch.zeros_like(cache["v"])
+        # every slot is written: the ring holds the last `length` positions
+        k_cache = cache["k"] if inplace else torch.empty_like(cache["k"])
+        v_cache = cache["v"] if inplace else torch.empty_like(cache["v"])
         k_cache[:, slots] = k[:, -length:].to(k_cache.dtype)
         v_cache[:, slots] = v[:, -length:].to(v_cache.dtype)
     else:
-        k_cache = _write_slot(cache["k"], k, 0)
-        v_cache = _write_slot(cache["v"], v, 0)
+        k_cache = _write_slot(cache["k"], k, 0, inplace)
+        v_cache = _write_slot(cache["v"], v, 0, inplace)
     return out, {"k": k_cache, "v": v_cache}

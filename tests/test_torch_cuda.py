@@ -3,8 +3,8 @@
 pair, the fused aggregate+transform pair and the phased SpMM launches of
 the split-phase schedule; flash attention in float32 and bfloat16 at every
 head width it is built for; the kernels/ops.py entry points on one
-partition's streams; and the sim backend's exchange on a side CUDA
-stream. Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
+partition's streams; the sim backend's exchange on a side CUDA stream;
+and the LM serve path (no custom kernel) card against CPU. Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
 only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -590,3 +590,41 @@ def test_cuda_ops_entry_points_match_plain_and_the_stacked_launch(f):
             gcn_spmm.assert_close_to_scale(g, plain[k], k)
         else:
             torch.testing.assert_close(g, plain[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-1b-a400m",
+                                  "mamba2-780m", "recurrentgemma-2b"])
+def test_cuda_serve_matches_the_cpu(arch):
+    """The LM serve path on the card against the same port on the CPU from
+    the same parameters (drawn on the card): prefill logits and 3 decode
+    steps' logits within 1e-4 relative, and serve_with's greedy tokens
+    equal. The serve path launches no custom kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the serve path runs on it")
+    from repro_torch.device import exact_f32_matmul
+    from repro_torch.launch.serve import serve_with
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LM
+    exact_f32_matmul()
+    lm = LM(get_arch(arch).reduced())
+    card = lm.init_params(torch.Generator("cuda").manual_seed(0))
+    host = tree_map(lambda x: x.cpu(), card)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, lm.cfg.vocab_size, (2, 12))
+    logits = {}
+    for dev, params in (("cuda", card), ("cpu", host)):
+        caches = lm.init_caches(2, 16, device=dev)
+        out, caches = lm.prefill(params, {"tokens": torch.from_numpy(
+            toks).to(dev)}, caches)
+        seen = [out[..., :lm.cfg.vocab_size].cpu()]
+        for i in range(3):
+            out, caches = lm.decode_step(params, torch.from_numpy(
+                toks[:, i:i + 1]).to(dev), caches, 12 + i)
+            seen.append(out[..., :lm.cfg.vocab_size].cpu())
+        logits[dev] = seen
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        assert float((got - want).norm() / want.norm()) < 1e-4
+    assert (serve_with(lm, card, 2, 12, 4)["sample_output"]
+            == serve_with(lm, host, 2, 12, 4)["sample_output"])

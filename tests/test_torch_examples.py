@@ -1,5 +1,5 @@
-"""The four torch examples run on the CPU, in process and briefly: each
-`main` takes its epoch (or step) count and the device. The SPMD example
+"""The five torch examples run on the CPU, in process and briefly: each
+`main` takes its epoch (or step, or token) count and the device. The SPMD example
 starts 4 gloo ranks holding 2 of 8 partitions each and asserts SPMD ==
 sim bitwise after every step."""
 import importlib.util
@@ -56,3 +56,16 @@ def test_stale_halo_transformer(capsys):
     assert all(len(v) == 3 and all(map(math.isfinite, v))
                for v in res.values())
     assert "final-loss gap vs sync" in capsys.readouterr().out
+
+
+def test_serve_decode(capsys):
+    """Reduced archs through serve at temperature 0.8: the dense, MoE and
+    SSM mixers and the encoder-decoder."""
+    for arch in ("qwen3-8b", "granite-moe-1b-a400m", "mamba2-780m",
+                 "whisper-large-v3"):
+        res = _example("torch_serve_decode").main(arch, gen=3, device="cpu",
+                                                  batch=2, prompt_len=8)
+        assert res["arch"] == arch and res["device"] == "cpu"
+        assert len(res["sample_output"]) == 3
+        assert math.isfinite(res["decode_tok_per_s"])
+    assert "sample_output: [" in capsys.readouterr().out

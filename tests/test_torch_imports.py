@@ -48,10 +48,11 @@ EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
 
 
 def test_probe_imports_every_torch_example():
-    """The four torch examples are among the files the probe loads."""
+    """The five torch examples are among the files the probe loads."""
     assert [os.path.basename(p) for p in EXAMPLES] == [
         "torch_pipegcn_spmd.py", "torch_quickstart.py",
-        "torch_stale_halo_transformer.py", "torch_train_reddit_sim.py"]
+        "torch_serve_decode.py", "torch_stale_halo_transformer.py",
+        "torch_train_reddit_sim.py"]
 
 
 @pytest.mark.parametrize("name", ["repro_torch.core.elastic",
@@ -61,10 +62,17 @@ def test_probe_imports_every_torch_example():
                                   "repro_torch.launch.check_schedule",
                                   "repro_torch.models.halo",
                                   "repro_torch.optim.optimizers",
-                                  "repro_torch.analysis.cost"])
+                                  "repro_torch.analysis.cost",
+                                  "repro_torch.models.model",
+                                  "repro_torch.models.moe",
+                                  "repro_torch.models.mla",
+                                  "repro_torch.models.ssd",
+                                  "repro_torch.models.rglru",
+                                  "repro_torch.models.shardctx",
+                                  "repro_torch.launch.serve"])
 def test_probe_walks_the_elastic_modules(name):
-    """The elastic runtime's modules, and those of the GCN-side API, are
-    among those the probe imports."""
+    """The elastic runtime's modules, those of the GCN-side API and the LM
+    serve path's are among those the probe imports."""
     import repro_torch
     assert name in {m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")}
