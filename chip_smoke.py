@@ -270,6 +270,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
                logits within 1e-4 in relative norm, the MoE routing
                indices equal, an MoE arch's card run repeated bit for
                bit.
+  7f. lm_train the LM zoo's training path (models/model.py LM.loss_fn under
+             autograd, remat by torch.utils.checkpoint, launch/train.py
+             train_lm / run_lm / --workload lm; plain PyTorch, no custom
+             kernel, as in JAX: the phase asserts zero launches of all seven);
+             every line carries the card's name and power limit:
+             - bf16: qwen3-8b at its published widths cut to 4 layers
+               (2.02 B parameters), remat on, batch 8 x seq 128 from
+               TokenStream, 20 steps of train_lm with adamw(
+               linear_warmup_cosine(3e-4, 10, 20), max_grad_norm=1.0):
+               every loss finite, the last below the first; then 8 steps
+               timed with forward + backward and opt.apply apart (a sync
+               after each), tokens/s, the model-FLOPs share (3 x forward
+               FLOPs of analytic_cost / step time / 989 TFLOP/s), the peak
+               memory beside the 24-bytes-per-parameter reckoning, and the
+               device ops and busy time of one profiled step;
+             - f32 vs f64: the same widths at 2 layers, one batch, the f32
+               model (full f32 products) against the same parameters in
+               f64 on the card: the loss within 1e-6 relative, every
+               gradient leaf within 1e-4 in relative norm (a key bias
+               without RoPE or qk-norm, whose exact gradient is 0, against
+               its layer's wk gradient); remat on against off at that bar,
+               bit-equality reported;
+             - mixers: mamba2-780m, granite-moe-1b-a400m, whisper-large-v3
+               whole and recurrentgemma-2b cut to 12 layers, bf16, 5 steps
+               each (loss, ms per step, peak memory), then the f32-vs-f64
+               check at a cut depth (2 layers; whisper 2 + 2 encoder
+               layers; recurrentgemma one r-r-a unit), each model freed;
+             - reduced: the ten archs through the CLI on the card (main(
+               ["--workload", "lm", "--arch", a, "--reduced", "--steps",
+               "3"])), then the same parameters through train_lm on the card
+               (whether it repeats the CLI bit for bit is reported, with
+               the backward's indexed-accumulation kernels where it does
+               not) and on the CPU: every loss within 1e-5.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -3772,6 +3805,364 @@ def phase_serve():
     log(f"serve: phase took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------
+# The LM zoo's training path: qwen3-8b at its published widths cut to 4
+# layers, the other mixers, and the ten reduced archs card against CPU
+# ---------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-8b", 4
+TRAIN_BATCH, TRAIN_SEQ = 8, 128          # the JAX launcher's defaults
+TRAIN_STEPS, TRAIN_TIMED = 20, 8
+TRAIN_LOSS_REL = 1e-6                    # f32 vs f64 loss, relative
+TRAIN_GRAD_REL = 1e-4                    # f32 vs f64, per gradient leaf
+TRAIN_CARD_CPU_REL = 1e-5                # reduced archs: card vs CPU losses
+TRAIN_REDUCED_STEPS = 3
+PEAK_BF16_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense (data sheet)
+# the other mixers at their published widths in bf16, 5 steps each: (arch,
+# decoder layers kept or None for all); then the f32-vs-f64 gradient check
+# at a cut depth: (decoder layers, encoder layers or None)
+TRAIN_MIXERS = (
+    ("mamba2-780m", None, (2, None)),            # SSD, chunk 256
+    ("granite-moe-1b-a400m", None, (2, None)),   # MoE: 32 experts, top-8
+    ("whisper-large-v3", None, (2, 2)),          # enc-dec, 1500 frames
+    ("recurrentgemma-2b", 12, (3, None)),        # RG-LRU: one r-r-a unit
+)
+TRAIN_MIXER_STEPS = 5
+
+
+def _train_opt(steps: int):
+    """The JAX launcher's optimizer for an LM run of `steps` steps."""
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    return adamw(linear_warmup_cosine(3e-4, 10, steps), max_grad_norm=1.0)
+
+
+def _train_stream(cfg, seed: int = 0):
+    from repro_torch.data import TokenStream
+    return iter(TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                            seed=seed))
+
+
+def _train_split_steps(lm, params, n: int):
+    """`n` more steps from `params`, each as train_lm runs it (batch,
+    loss_and_grads, opt.apply) with a device sync after the forward +
+    backward and after opt.apply: (forward + backward ms, opt.apply ms,
+    the last step's parameters), and one profiled step's device ops."""
+    import torch
+    from repro_torch.launch.train import lm_batch, loss_and_grads
+    opt = _train_opt(TRAIN_STEPS)
+    state = opt.init(params)
+    stream = _train_stream(lm.cfg, 1)
+    fb, upd = [], []
+
+    def step(params, state):
+        batch = lm_batch(next(stream), lm, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(lm, params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            params, state = opt.apply(params, grads, state)
+        torch.cuda.synchronize()
+        fb.append((t1 - t0) * 1e3)
+        upd.append((time.perf_counter() - t1) * 1e3)
+        assert bool(torch.isfinite(loss)), loss
+        return params, state
+    for _ in range(n):
+        params, state = step(params, state)
+    prof = _step_stats(_device_kernels(lambda: step(params, state)))
+    return fb[:n], upd[:n], prof
+
+
+def _median(xs):
+    q = sorted(xs)
+    return (q[(len(q) - 1) // 2] + q[len(q) // 2]) / 2
+
+
+def _train_full(card):
+    """qwen3-8b at its published widths cut to TRAIN_LAYERS layers, bf16
+    with remat as its config has them: TRAIN_STEPS steps of train_lm, then
+    TRAIN_TIMED steps timed with forward + backward and opt.apply apart
+    and one profiled step."""
+    import dataclasses
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.analysis import analytic_cost
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.model import LM
+    full = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    lm = LM(cfg)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    reckoned_gb = 24 * n_params / 1e9        # bf16 p, g; f32 mu, nu; twice
+    log(f"lm_train [{card}]: {TRAIN_ARCH} at its published widths, "
+        f"{TRAIN_LAYERS} of its {full.num_layers} layers, {n_params:,} "
+        f"parameters, bf16, remat on; batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, {TRAIN_STEPS} steps of train_lm")
+    losses, params, secs = train_lm(lm, params, _train_opt(TRAIN_STEPS),
+                                    _train_stream(cfg), TRAIN_STEPS,
+                                    log=None)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    fb, upd, prof = _train_split_steps(lm, params, TRAIN_TIMED)
+    steps = [a + b for a, b in zip(fb, upd)]
+    step_ms = _median(steps)
+    shape = InputShape("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    train_flops = analytic_cost(cfg, shape)["flops_global"]
+    model_flops = 3 * train_flops / 4      # the count includes remat's
+    row = dict(params=n_params, first_loss=losses[0], last_loss=losses[-1],
+               losses=losses, loop_s=secs, step_ms=step_ms,
+               step_ms_all=steps, fwd_bwd_ms=_median(fb),
+               opt_apply_ms=_median(upd),
+               opt_share=_median(upd) / step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+               model_flops=model_flops,
+               model_flops_share=model_flops / (step_ms / 1e3)
+               / PEAK_BF16_FLOPS,
+               peak_gb=peak / 1e9, reckoned_peak_gb=reckoned_gb,
+               step_ops=prof["kernels"], step_copies=prof["copies"],
+               step_busy_ms=prof["busy_ms"],
+               step_idle_share=1 - prof["busy_ms"] / step_ms,
+               step_top=prof["top"])
+    log(f"lm_train [{card}]: {TRAIN_ARCH} x{TRAIN_LAYERS} bf16 loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps "
+        f"({secs:.2f} s, finite, falling) OK; median step of "
+        f"{TRAIN_TIMED} {step_ms:.3f} ms = forward + backward "
+        f"{row['fwd_bwd_ms']:.3f} + opt.apply {row['opt_apply_ms']:.3f} "
+        f"ms ({row['opt_share']:.1%} in the optimizer); "
+        f"{row['tokens_per_s']:.1f} tokens/s; model-FLOPs share "
+        f"{row['model_flops_share']:.2%} (3 x forward FLOPs of "
+        f"analytic_cost, {model_flops / 1e12:.2f} TFLOP, / step time / "
+        f"989 TFLOP/s bf16 dense peak); peak memory {row['peak_gb']:.2f} "
+        f"GB (reckoned ~{reckoned_gb:.1f} GB: 24 bytes per parameter); one "
+        f"profiled step {prof['kernels']} device ops + {prof['copies']} "
+        f"copies, device busy {prof['busy_ms']:.3f} ms (idle share "
+        f"{row['step_idle_share']:.1%})")
+    log(f"lm_train [{card}]: the profiled step's most launched device ops: "
+        f"{prof['top']}")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _zero_grad_by_structure(cfg, path: str) -> bool:
+    """A key bias without RoPE or qk-norm adds q·bk to all of a query's
+    scores, which the softmax cancels: its exact gradient is 0."""
+    return path.endswith("['bk']") and not (cfg.use_rope or cfg.qk_norm)
+
+
+def _grads_against(cfg, run, ref, what, card):
+    """A run's (loss, grads) against a reference's: the loss within
+    TRAIN_LOSS_REL, each gradient leaf within TRAIN_GRAD_REL in relative
+    norm (a leaf zero by structure against its layer's wk gradient); the
+    worst leaf and whether everything is bit-equal."""
+    import torch
+    from torch.utils._pytree import keystr, tree_flatten_with_path
+    (loss, grads), (rloss, rgrads) = run, ref
+    loss_rel = abs(float(loss) - float(rloss)) / abs(float(rloss))
+    assert loss_rel <= TRAIN_LOSS_REL, (what, float(loss), float(rloss))
+    got, want = ({keystr(k): v for k, v in tree_flatten_with_path(t)[0]}
+                 for t in (grads, rgrads))
+    assert list(got) == list(want)
+    worst, equal = (0.0, ""), bool(torch.equal(loss, rloss))
+    for path, w in want.items():
+        g = got[path]
+        assert bool(torch.isfinite(g).all()), (what, path)
+        diff = float(torch.linalg.vector_norm((g.double() - w.double())))
+        scale = float(torch.linalg.vector_norm(w.double()))
+        if _zero_grad_by_structure(cfg, path):
+            scale = float(torch.linalg.vector_norm(
+                want[path[:-len("['bk']")] + "['wk']"].double()))
+        rel = diff / scale if scale else diff
+        assert rel <= TRAIN_GRAD_REL, (what, path, rel)
+        worst = max(worst, (rel, path))
+        equal = equal and g.dtype == w.dtype and bool(torch.equal(g, w))
+    log(f"lm_train {what} [{card}]: loss rel {loss_rel:.3e} (bar "
+        f"{TRAIN_LOSS_REL}), {len(want)} gradient leaves, worst "
+        f"{worst[0]:.3e} at {worst[1]} (bar {TRAIN_GRAD_REL}); bit-equal: "
+        f"{equal} OK")
+    return dict(loss_rel=loss_rel, worst_leaf_rel=worst[0],
+                worst_leaf=worst[1], bit_equal=equal)
+
+
+def _f64_check(cfg, card, remat_too=False):
+    """cfg's model in f32 on the card (dense products in full f32) against
+    the same parameters in f64 on the card, on one TokenStream batch with
+    numpy-seeded memory where the arch reads it: loss and every gradient
+    leaf; with `remat_too`, f32 with remat on against off."""
+    import dataclasses
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.launch.train import lm_batch, loss_and_grads
+    from repro_torch.models.model import LM
+    f64 = torch.float64
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32", remat=True))
+    lm64 = LM(dataclasses.replace(cfg, dtype="float64", remat=True))
+    params = lm32.init_params(torch.Generator("cuda").manual_seed(0))
+    batch = lm_batch(next(_train_stream(cfg)), lm32, "cuda")
+    batch.update(_memory_inputs(cfg, TRAIN_BATCH, 1))
+    ref = loss_and_grads(lm64, tree_map(lambda x: x.to(f64), params),
+                         {k: v.to(f64) if v.is_floating_point() else v
+                          for k, v in batch.items()})
+    run = loss_and_grads(lm32, params, batch)
+    out = {"f32_vs_f64": _grads_against(cfg, run, ref, f"{cfg.arch_id} "
+                                        "f32 vs f64", card)}
+    del ref
+    if remat_too:
+        off = LM(dataclasses.replace(lm32.cfg, remat=False))
+        out["remat_on_vs_off"] = _grads_against(
+            cfg, run, loss_and_grads(off, params, batch),
+            f"{cfg.arch_id} f32 remat on vs off", card)
+    del params, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_mixers(card):
+    """The other mixers at their published widths in bf16 (TRAIN_MIXERS),
+    TRAIN_MIXER_STEPS steps each: loss, ms per step, peak memory; then the
+    f32-vs-f64 gradient check at a cut depth; each model freed."""
+    import dataclasses
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.model import LM
+    rows = {}
+    for arch, layers, (cut, enc_cut) in TRAIN_MIXERS:
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        lm = LM(cfg)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(torch.Generator("cuda").manual_seed(0))
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        losses, params, secs = train_lm(
+            lm, params, _train_opt(TRAIN_MIXER_STEPS), _train_stream(cfg),
+            TRAIN_MIXER_STEPS, log=None)
+        peak = torch.cuda.max_memory_allocated() - base
+        assert all(math.isfinite(v) for v in losses), (arch, losses)
+        del params
+        torch.cuda.empty_cache()
+        depth = (f"{layers} of its {full.num_layers} layers" if layers
+                 else f"all {cfg.num_layers} layers")
+        log(f"lm_train [{card}]: {arch} at its published widths, {depth}, "
+            f"{n_params:,} parameters, {cfg.dtype}, remat {cfg.remat}: "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+            f"{TRAIN_MIXER_STEPS} steps, {secs / TRAIN_MIXER_STEPS * 1e3:.1f}"
+            f" ms per step (the first included), peak memory "
+            f"{peak / 1e9:.2f} GB (reckoned ~{24 * n_params / 1e9:.1f} GB)")
+        small = dataclasses.replace(
+            full, num_layers=cut,
+            encoder_layers=enc_cut if enc_cut else full.encoder_layers)
+        rows[arch] = dict(params=n_params, losses=losses,
+                          ms_per_step=secs / TRAIN_MIXER_STEPS * 1e3,
+                          peak_gb=peak / 1e9,
+                          check_layers=(cut, enc_cut),
+                          **_f64_check(small, card))
+    return rows
+
+
+def _backward_index_ops(lm, params, batch) -> list:
+    """The device kernels of one backward whose names point at indexed
+    accumulation (the ops that may add in no fixed order)."""
+    from repro_torch.launch.train import loss_and_grads
+    names = _device_kernels(lambda: loss_and_grads(lm, params, batch))
+    keys = ("atomic", "index", "scatter", "put", "embedding")
+    return sorted(k[:80] for k in names if any(s in k.lower() for s in keys))
+
+
+def _train_reduced(card):
+    """The ten archs, reduced, through the CLI on the card (--workload lm
+    --reduced --steps TRAIN_REDUCED_STEPS); then the same parameters drawn
+    on the card as run_lm draws them through train_lm on the card (does it
+    repeat the CLI bit for bit?) and, carried over, on the CPU: every loss
+    within TRAIN_CARD_CPU_REL."""
+    import contextlib
+    import io
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.launch.train import lm_batch, main, train_lm
+    from repro_torch.models.model import LM
+    rows = {}
+    for arch in ARCH_IDS:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = main(["--workload", "lm", "--arch", arch, "--reduced",
+                        "--steps", str(TRAIN_REDUCED_STEPS)])
+        assert res["device"] == "cuda", res
+        lm = LM(get_arch(arch).reduced())
+        card_params = lm.init_params(torch.Generator("cuda").manual_seed(0))
+        host_params = tree_map(lambda x: x.cpu(), card_params)
+        seen = {}
+        for dev, params in (("cuda", card_params), ("cpu", host_params)):
+            seen[dev] = train_lm(lm, params, _train_opt(TRAIN_REDUCED_STEPS),
+                                 _train_stream(lm.cfg), TRAIN_REDUCED_STEPS,
+                                 log=None)[0]
+        card_losses, host_losses = seen["cuda"], seen["cpu"]
+        repeats = (card_losses[0] == res["first_loss"]
+                   and card_losses[-1] == res["last_loss"])
+        assert abs(card_losses[0] - res["first_loss"]) <= \
+            TRAIN_CARD_CPU_REL * abs(res["first_loss"])
+        assert abs(card_losses[-1] - res["last_loss"]) <= \
+            TRAIN_CARD_CPU_REL * abs(res["last_loss"])
+        errs = [abs(a - b) / abs(b) for a, b in zip(card_losses, host_losses)]
+        assert max(errs) <= TRAIN_CARD_CPU_REL, (arch, errs)
+        ops = [] if repeats else _backward_index_ops(
+            lm, card_params, lm_batch(next(_train_stream(lm.cfg)), lm,
+                                      "cuda"))
+        rows[arch] = dict(first_loss=res["first_loss"],
+                          last_loss=res["last_loss"],
+                          steps_per_sec=res["steps_per_sec"],
+                          card_losses=card_losses, cpu_losses=host_losses,
+                          card_vs_cpu=max(errs), repeats_bitwise=repeats,
+                          index_ops=ops)
+        log(f"lm_train reduced [{card}]: {arch} through the CLI loss "
+            f"{res['first_loss']:.6f} -> {res['last_loss']:.6f} "
+            f"({res['steps_per_sec']:.2f} steps/s); train_lm on the card "
+            f"repeats it bit for bit: {repeats}"
+            + (f" (backward index ops {ops})" if ops else "")
+            + f"; card vs CPU losses within {max(errs):.2e} (bar "
+            f"{TRAIN_CARD_CPU_REL}) OK")
+        del card_params, host_params
+    return rows
+
+
+def phase_lm_train():
+    """The LM training path on the card (see the module docstring, 7f)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    reset_launches()
+    full = _train_full(card)
+    checks = _f64_check(dataclasses.replace(get_arch(TRAIN_ARCH),
+                                            num_layers=2), card,
+                        remat_too=True)
+    mixers = _train_mixers(card)
+    reduced = _train_reduced(card)
+    launches = read_launches()
+    assert not any(launches.values()), launches
+    log(f"lm_train [{card}]: no port kernel launched in the phase "
+        f"({launches}) OK")
+    log(f"lm_train [{card}]: " + json.dumps(dict(
+        full=full, full_width_2_layers=checks, mixers=mixers,
+        reduced=reduced)))
+    torch.cuda.empty_cache()
+    log(f"lm_train: phase took {time.perf_counter() - t0:.1f} s")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3831,6 +4222,7 @@ def main(argv) -> int:
     runs.update(phase_elastic(reddit)[1])
     runs.update(phase_api(reddit, split_pipes))
     phase_serve()
+    phase_lm_train()
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

@@ -1,15 +1,203 @@
-"""Static FLOP / HBM-byte model of the PipeGCN layer matmul ordering
-(aggregate-first vs transform-first) and the graph-layout report.
+"""Analytic FLOP / HBM-byte models: the LM zoo's architectures
+(`analytic_cost`), the PipeGCN layer matmul ordering (aggregate-first vs
+transform-first) and the graph-layout report.
 
-Port copy of the GCN part of the JAX package's ``repro.analysis.cost``
-(the LM cost model is not part of the port). The "auto" matmul order
-resolves through ``choose_gcn_orders`` exactly as in the JAX package.
+Port copy of the JAX package's ``repro.analysis.cost``. The "auto" matmul
+order resolves through ``choose_gcn_orders`` exactly as in the JAX
+package. The LM model is exact for the matmul-dominated terms and an
+explicit approximation elsewhere; all its counts are GLOBAL per step
+(divide by chip count for per-device terms). JAX counts the parameters
+with ``jax.eval_shape``; the port draws them on the ``meta`` device
+(`param_count`), which allocates nothing.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
+from torch.utils._pytree import tree_leaves
+
+from repro_torch.models.config import ArchConfig, InputShape
+from repro_torch.models.model import LM, decoder_layer_specs
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: the init
+    functions draw on their generator's device, so `LM.init_params` given
+    one builds every leaf's shape and dtype without storage."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+@functools.lru_cache(maxsize=None)
+def param_count(cfg: ArchConfig) -> int:
+    """The number of parameters `LM(cfg).init_params` draws, counted from
+    leaves on the ``meta`` device (no memory, any model size)."""
+    params = LM(cfg).init_params(_MetaGenerator())
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def _attn_flops_per_tok(cfg: ArchConfig, kv_len: float, causal: bool) -> float:
+    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    d = cfg.d_model
+    proj = 2 * d * (2 * h * hd + 2 * k * hd)          # q,o + k,v
+    eff = kv_len / 2 if causal and cfg.sliding_window == 0 else \
+        min(kv_len, cfg.sliding_window) if cfg.sliding_window else kv_len
+    scores = 2 * eff * h * hd * 2                      # QK^T and PV
+    return proj + scores
+
+
+def _mla_flops_per_tok(cfg: ArchConfig, kv_len: float) -> float:
+    h = cfg.num_heads
+    d = cfg.d_model
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+    if cfg.q_lora_rank:
+        q = 2 * d * cfg.q_lora_rank + 2 * cfg.q_lora_rank * h * qk
+    else:
+        q = 2 * d * h * qk
+    kv = 2 * d * r + 2 * d * cfg.qk_rope_dim \
+        + 2 * r * h * cfg.qk_nope_dim + 2 * r * h * cfg.v_head_dim
+    eff = min(kv_len, cfg.sliding_window) if cfg.sliding_window else kv_len / 2
+    scores = 2 * eff * h * (qk + cfg.v_head_dim)
+    out = 2 * h * cfg.v_head_dim * d
+    return q + kv + scores + out
+
+
+def _mlp_flops_per_tok(cfg: ArchConfig) -> float:
+    mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+    return 2.0 * cfg.d_model * cfg.d_ff * mult
+
+
+def _moe_flops_per_tok(cfg: ArchConfig, dropless: bool) -> float:
+    d, f = cfg.d_model, cfg.moe_d_ff
+    router = 2.0 * d * cfg.num_experts
+    factor = 1.0 if dropless else cfg.capacity_factor
+    routed = 2.0 * d * f * 3 * cfg.experts_per_tok * factor
+    shared = 2.0 * d * f * cfg.num_shared_experts * 3
+    return router + routed + shared
+
+
+def _ssd_flops_per_tok(cfg: ArchConfig, decode: bool) -> float:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, h, hp = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    proj = 2.0 * d * (2 * di + 2 * g * n + h) + 2.0 * di * d
+    conv = 2.0 * cfg.ssm_conv * (di + 2 * g * n)
+    if decode:
+        scan = 2.0 * h * hp * n * 2                      # state update + out
+    else:
+        q = cfg.ssm_chunk
+        # intra-chunk dual form + chunk states + inter-chunk contribution
+        scan = 2.0 * q * h * (n + hp) + 4.0 * h * hp * n
+    return proj + conv + scan
+
+
+def _rglru_flops_per_tok(cfg: ArchConfig) -> float:
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return 2.0 * d * w * 2 + 2.0 * w * w * 2 + 2.0 * w * d \
+        + 2.0 * cfg.conv1d_width * w
+
+
+def _xattn_flops_per_tok(cfg: ArchConfig, mem_len: float,
+                         cached: bool) -> float:
+    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    d = cfg.d_model
+    proj = 2 * d * 2 * h * hd                          # q,o every call
+    kv = 0.0 if cached else 2 * d * 2 * k * hd * 1.0   # amortized at prefill
+    scores = 2 * mem_len * h * hd * 2
+    return proj + kv + scores
+
+
+def analytic_cost(cfg: ArchConfig, shape: InputShape) -> dict:
+    """Global FLOPs and HBM bytes for one step of the given mode."""
+    specs = decoder_layer_specs(cfg)
+    mem_len = cfg.num_audio_frames if cfg.is_encdec else cfg.num_image_tokens
+    b, s = shape.global_batch, shape.seq_len
+    decode = shape.mode == "decode"
+    toks = b * (1 if decode else s)
+    kv_len = s if not decode else s                     # cache length
+    if decode and cfg.sliding_window:
+        kv_len = min(s, cfg.sliding_window)
+
+    per_tok = 0.0
+    for spec in specs:
+        if spec.mixer == "attn":
+            per_tok += _attn_flops_per_tok(cfg, kv_len, causal=True)
+        elif spec.mixer == "mla":
+            per_tok += _mla_flops_per_tok(cfg, kv_len)
+        elif spec.mixer == "ssd":
+            per_tok += _ssd_flops_per_tok(cfg, decode)
+        elif spec.mixer == "rglru":
+            per_tok += _rglru_flops_per_tok(cfg)
+        elif spec.mixer == "xattn":
+            per_tok += _xattn_flops_per_tok(cfg, mem_len, cached=decode)
+        if spec.cross:
+            per_tok += _xattn_flops_per_tok(cfg, mem_len, cached=decode)
+        if spec.ffn == "dense":
+            per_tok += _mlp_flops_per_tok(cfg)
+        elif spec.ffn == "moe":
+            per_tok += _moe_flops_per_tok(cfg, dropless=decode)
+    per_tok += 2.0 * cfg.d_model * cfg.padded_vocab     # logits
+
+    fwd = per_tok * toks
+    if cfg.is_encdec and not decode:
+        enc_tok = b * cfg.num_audio_frames
+        enc_per_tok = (_attn_flops_per_tok(cfg, cfg.num_audio_frames, False)
+                       + _mlp_flops_per_tok(cfg))
+        fwd += enc_per_tok * enc_tok * cfg.encoder_layers
+
+    p_total = param_count(cfg)
+
+    if shape.mode == "train":
+        flops = 4.0 * fwd            # fwd + bwd(2x) + remat re-fwd(1x)
+        # params: read fwd + read bwd + remat (bf16) ; grads write (bf16);
+        # adam state read+write (f32 m,v) + param update
+        bytes_params = p_total * (3 * 2 + 2 + 4 * 4 + 2 * 2)
+        act_bytes = toks * cfg.d_model * 2 * len(specs) * 6
+        bytes_total = bytes_params + act_bytes \
+            + toks * cfg.padded_vocab * 2 * 2
+    else:
+        flops = fwd
+        bytes_params = p_total * 2                     # one read, bf16
+        if decode:
+            cache_bytes = _cache_bytes(cfg, b, kv_len)
+            bytes_total = bytes_params + cache_bytes * 2   # read + write
+            act_bytes = toks * cfg.d_model * 2 * len(specs) * 4
+            bytes_total += act_bytes
+        else:
+            act_bytes = toks * cfg.d_model * 2 * len(specs) * 6
+            bytes_total = bytes_params + act_bytes \
+                + _cache_bytes(cfg, b, min(s, kv_len))
+    return {"flops_global": float(flops), "hbm_bytes_global": float(bytes_total),
+            "params_total": p_total}
+
+
+def _cache_bytes(cfg: ArchConfig, batch: int, length: int) -> float:
+    specs = decoder_layer_specs(cfg)
+    total = 0.0
+    for spec in specs:
+        if spec.mixer == "attn":
+            total += 2 * batch * length * cfg.num_kv_heads \
+                * cfg.resolved_head_dim * 2
+        elif spec.mixer == "mla":
+            total += batch * length * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+        elif spec.mixer == "ssd":
+            total += batch * cfg.ssm_nheads * cfg.ssm_headdim \
+                * cfg.ssm_state * 4
+        elif spec.mixer == "rglru":
+            total += batch * (cfg.lru_width or cfg.d_model) * 4
+        if spec.cross or spec.mixer == "xattn":
+            mem = cfg.num_audio_frames if cfg.is_encdec else cfg.num_image_tokens
+            total += 2 * batch * mem * cfg.num_kv_heads \
+                * cfg.resolved_head_dim * 2
+    return total
+
+
 
 GCN_ORDERS = ("aggregate-first", "transform-first")
 _TILE = 128       # adjacency tile edge (repro_torch.kernels.gcn_spmm.TILE)

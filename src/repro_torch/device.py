@@ -17,6 +17,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device):
+    """Wait for the work queued on `device` (a no-op on the CPU), so a host
+    clock read after it times the device's work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def exact_f32_matmul():
     """Keep the dense products in full float32 on the card (no TF32): the
     JAX package computes them in f32, and the port's kernels keep f32

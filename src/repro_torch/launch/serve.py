@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.device import exact_f32_matmul, resolve_device
+from repro_torch.device import exact_f32_matmul, resolve_device, synchronize
 from repro_torch.models.model import LM
 
 
@@ -43,11 +43,6 @@ def add_stubs(batch, cfg, b, dtype, device="cuda"):
                                            cfg.d_model, dtype=dtype,
                                            device=dev)
     return batch
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def serve_with(lm: LM, params, batch_size: int, prompt_len: int,
@@ -67,10 +62,10 @@ def serve_with(lm: LM, params, batch_size: int, prompt_len: int,
     caches = lm.init_caches(batch_size, prompt_len + gen_tokens, dev)
 
     with torch.inference_mode():
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         logits, caches = lm.prefill(params, batch, caches, donate=True)
-        _sync(dev)
+        synchronize(dev)
         t_prefill = time.perf_counter() - t0
 
         gen = torch.Generator(dev).manual_seed(seed + 1)
@@ -85,7 +80,7 @@ def serve_with(lm: LM, params, batch_size: int, prompt_len: int,
             generated.append(tok)
             logits, caches = lm.decode_step(params, tok, caches,
                                             prompt_len + i, donate=True)
-        _sync(dev)
+        synchronize(dev)
         t_decode = time.perf_counter() - t1
 
     out_tokens = torch.cat(generated, dim=1).cpu().numpy()

@@ -1,13 +1,19 @@
-"""Training launcher for the PyTorch port (GCN full-graph training).
+"""Training launcher for the PyTorch port. Two workload kinds behind one
+CLI, as in the JAX launcher (``repro.launch.train``):
 
+  GCN full-graph training (the paper):
     python -m repro_torch.launch.train --workload gcn --dataset reddit-sim \\
         --partitions 4 --variant pipegcn --agg blocksparse --epochs 300
 
-Takes every flag of the JAX launcher (``repro.launch.train``), with its
-names, types and defaults, plus ``--device`` (default ``cuda``; ``cpu``
-runs the plain PyTorch versions of the kernels). A flag of a feature the
-port does not run yet, given away from its default, exits with an error
-that names its ROADMAP item (`UNPORTED`).
+  Transformer LM training (the zoo's archs, reduced or full config):
+    python -m repro_torch.launch.train --workload lm --arch qwen3-8b \\
+        --reduced --steps 50 --batch 8 --seq 128
+
+Takes every flag of the JAX launcher, with its names, types and defaults,
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
+versions of the kernels). The LM workload (`run_lm`, its loop `train_lm`)
+launches none of the port's kernels, as JAX's launches no Pallas kernel:
+the model is plain PyTorch, differentiated by autograd.
 
 ``--elastic`` (with ``--guard-exchange`` and a checkpoint directory)
 arms the elastic runtime: a device whose exchanges all fall back
@@ -34,38 +40,25 @@ import dataclasses
 import json
 import os
 import socket
+import time
 
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.configs import get_arch
 from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.core.elastic import ElasticConfig
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.health import HealthConfig
 from repro_torch.core.trainer import train_pipegcn
 from repro_torch.data.graph_pipeline import GraphDataPipeline
+from repro_torch.data.tokens import TokenStream
+from repro_torch.device import (exact_f32_matmul, resolve_device,
+                                synchronize)
 from repro_torch.graph.synthetic import model_template
-
-
-# Flags of the JAX launcher whose features the port does not run yet, by
-# the ROADMAP Queue 1 item that ports them. Each is refused when given away
-# from its default.
-UNPORTED = {
-    12: ("the transformer LM workload",
-         ("workload", "arch", "reduced", "steps", "batch", "seq")),
-}
-
-
-def unported_flags(args) -> list[str]:
-    """The given flags that select features this port does not run, each
-    with its ROADMAP item."""
-    ap = parser()
-    bad = []
-    for item, (what, dests) in UNPORTED.items():
-        for dest in dests:
-            value = getattr(args, dest)
-            if value != ap.get_default(dest):
-                flag = "--" + dest.replace("_", "-")
-                shown = flag if isinstance(value, bool) else f"{flag} {value}"
-                bad.append(f"{shown} (ROADMAP Queue 1 item {item}: {what})")
-    return bad
+from repro_torch.launch.serve import add_stubs
+from repro_torch.models.model import LM
+from repro_torch.optim import adamw, linear_warmup_cosine
 
 
 def init_distributed(device: str) -> str:
@@ -184,6 +177,81 @@ def _run_gcn(args, log) -> dict:
     return out
 
 
+def lm_batch(batch: dict, lm: LM, device) -> dict:
+    """A `TokenStream` batch (numpy tokens and labels) on `device`, with
+    the zero audio / image stubs the arch reads as memory."""
+    out = {k: torch.from_numpy(v).to(device, torch.int64)
+           for k, v in batch.items()}
+    return add_stubs(out, lm.cfg, out["tokens"].shape[0], lm.dtype, device)
+
+
+def loss_and_grads(lm: LM, params, batch: dict):
+    """(loss, gradient tree) of ``lm.loss_fn`` at `params` by autograd
+    (``loss.backward()``); the gradient tree mirrors `params`, a leaf the
+    loss does not reach getting zeros, as ``jax.grad`` gives it."""
+    leaves, treespec = tree_flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    loss = lm.loss_fn(tree_unflatten(leaves, treespec), batch)
+    loss.backward()
+    grads = [torch.zeros_like(x) if x.grad is None else x.grad
+             for x in leaves]
+    return loss.detach(), tree_unflatten(grads, treespec)
+
+
+def train_lm(lm: LM, params, opt, stream, steps: int, log=print):
+    """`steps` training steps of `lm` from `params` (a tree of tensors on
+    one device) with the optimizer `opt` over the batches of `stream` (an
+    iterator of `TokenStream` batches): JAX's `run_lm` loop. Each step
+    takes the loss's gradient by autograd, then ``opt.apply``; every
+    ``max(steps // 10, 1)`` steps it logs the loss. Returns (losses, final
+    parameters, seconds of the loop, ended by a device sync)."""
+    dev = tree_flatten(params)[0][0].device
+    exact_f32_matmul()
+    opt_state = opt.init(params)
+    losses = []
+    synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        batch = lm_batch(next(stream), lm, dev)
+        loss, grads = loss_and_grads(lm, params, batch)
+        with torch.no_grad():
+            params, opt_state = opt.apply(params, grads, opt_state)
+        del grads           # not held through the next step's backward
+        losses.append(float(loss))
+        if log and i % max(steps // 10, 1) == 0:
+            log(f"step {i:5d} loss {losses[-1]:.4f}")
+    synchronize(dev)
+    return losses, params, time.perf_counter() - t0
+
+
+def run_lm(args) -> dict:
+    """The LM workload: `args.arch` (reduced under `--reduced`) with
+    parameters drawn from a generator seeded `args.seed` on the device,
+    AdamW with warm-up and cosine decay and gradients clipped to norm 1,
+    `args.steps` steps on `TokenStream` batches; JAX's result keys plus
+    ``device``. `--ckpt-dir` saves the final parameters."""
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    lm = LM(cfg)
+    params = lm.init_params(torch.Generator(dev).manual_seed(args.seed))
+    opt = adamw(linear_warmup_cosine(args.lr or 3e-4, 10, args.steps),
+                max_grad_norm=1.0)
+    stream = iter(TokenStream(cfg.vocab_size, args.seq, args.batch,
+                              seed=args.seed))
+    losses, params, secs = train_lm(lm, params, opt, stream, args.steps,
+                                    log=lambda m: print(m, flush=True))
+    out = {"workload": "lm", "arch": args.arch, "reduced": args.reduced,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "steps_per_sec": args.steps / secs, "device": str(dev)}
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import save_checkpoint
+        save_checkpoint(args.ckpt_dir, args.steps, params)
+    print(json.dumps(out, indent=1))
+    return out
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", choices=["gcn", "lm"], default="gcn")
@@ -277,9 +345,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--elastic-max-recoveries", type=int, default=2)
     ap.add_argument("--elastic-no-rejoin", action="store_true",
                     help="stay on the survivors once a device is lost")
-    # Flags of the JAX launcher whose features are not ported yet (UNPORTED):
-    # accepted with the JAX names, types and defaults so that a JAX command
-    # line parses, then refused by unported_flags.
+    # lm
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
@@ -289,12 +355,10 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    ap = parser()
-    args = ap.parse_args(argv)
-    bad = unported_flags(args)
-    if bad:
-        ap.error("not ported to repro_torch yet: " + "; ".join(bad))
-    return run_gcn(args)
+    args = parser().parse_args(argv)
+    if args.workload == "gcn":
+        return run_gcn(args)
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,23 +1,27 @@
 """Language-model assembly for the assigned architecture pool.
 
-Port of the JAX package's ``models/model.py``: its serve path (``prefill``
-and ``decode_step``) and the full-sequence forward they are checked
-against (``forward_logits``). A model is a list of *layer groups*: maximal
-runs of identical layer specs. A group of n ≥ 2 layers keeps JAX's stacked
-parameters and caches (a leading n axis on every leaf, so both packages'
-trees match leaf for leaf) and runs as a Python loop over n where JAX
-runs ``lax.scan``; singleton groups are applied directly. Heterogeneous
-archs (recurrentgemma's r-r-a pattern, llama-vision's every-5th cross-attn
-layer) fall out of the same grouping.
+Port of the JAX package's ``models/model.py``: its training loss
+(``loss_fn``), its serve path (``prefill`` and ``decode_step``) and the
+full-sequence forward they share (``forward_logits``). A model is a list
+of *layer groups*: maximal runs of identical layer specs. A group of n ≥ 2
+layers keeps JAX's stacked parameters and caches (a leading n axis on
+every leaf, so both packages' trees match leaf for leaf) and runs as a
+Python loop over n where JAX runs ``lax.scan``; singleton groups are
+applied directly. Heterogeneous archs (recurrentgemma's r-r-a pattern,
+llama-vision's every-5th cross-attn layer) fall out of the same grouping.
 
-``cfg.remat`` (JAX's ``jax.checkpoint`` of each layer) has no meaning
-without autograd, and the serve path runs none. Not here yet: ``loss_fn``
-(the LM training slice) and the ``*_spec`` sharding trees
-(``param_specs``, ``cache_specs``; the sharding-rules bullet of ROADMAP
-Queue 1 item 12).
+Gradients come from autograd. With ``cfg.remat`` set and autograd
+recording, each layer of the full-sequence forward runs under
+``torch.utils.checkpoint`` (JAX wraps the layer body in
+``jax.checkpoint``): its activations are recomputed in the backward
+instead of kept, which changes memory, not numbers. Under
+``torch.no_grad`` / ``inference_mode`` (the serve path) nothing is
+recomputed. Not here yet: the ``*_spec`` sharding trees (``param_specs``,
+``cache_specs``; the sharding-rules bullet of ROADMAP Queue 1 item 12).
 
 Entry points:
   init_params(gen)                        parameters drawn from `gen`
+  loss_fn(params, batch)                  training forward + CE loss
   forward_logits(params, batch)           full-sequence forward
   prefill(params, batch, caches)          fill caches, return last logits
   decode_step(params, token, caches, pos) one-token serve step
@@ -34,7 +38,8 @@ import math
 from typing import Any, NamedTuple
 
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -47,6 +52,8 @@ from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        init_embed, init_mlp, init_norm,
                                        make_dense, rms_head_norm)
 from repro_torch.models.shardctx import constrain
+
+MOE_AUX_COEF = 0.01
 
 
 class LayerSpec(NamedTuple):
@@ -98,6 +105,17 @@ def _stacked(n: int, one):
 def _layer(tree, i: int):
     """Layer i of a stacked group's tree (views)."""
     return tree_map(lambda x: x[i], tree)
+
+
+def _layers(tree, n: int) -> list:
+    """The n layers of a stacked group's tree (views), each leaf unbound
+    once: under autograd the backward of ``unbind`` stacks the n layers'
+    gradients into one leaf-sized tensor, where n selects ``x[i]`` would
+    each allocate a zero tensor the size of the whole leaf."""
+    leaves, treespec = tree_flatten(tree)
+    per_leaf = [torch.unbind(x) for x in leaves]
+    return [tree_unflatten([u[i] for u in per_leaf], treespec)
+            for i in range(n)]
 
 
 # ------------------------------------------------------------------ layers
@@ -370,13 +388,24 @@ class LM:
 
     def _group_forward(self, gp, spec, n, x, positions, memory,
                        moe_dropless=False):
-        gated = bool(self.cfg.cross_attn_every)
+        cfg = self.cfg
+        gated = bool(cfg.cross_attn_every)
+
+        def body(lp, h):
+            out, a = apply_layer(lp, cfg, spec, constrain(h, "residual"),
+                                 positions, memory, gated, moe_dropless)
+            return constrain(out, "residual"), a
+
+        # JAX's jax.checkpoint of the layer body; the layers draw no random
+        # bits, so the recomputation needs no saved generator state
+        remat = cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(n):
-            lp = gp if n == 1 else _layer(gp, i)
-            x, a = apply_layer(lp, self.cfg, spec, constrain(x, "residual"),
-                               positions, memory, gated, moe_dropless)
-            x = constrain(x, "residual")
+        for lp in ([gp] if n == 1 else _layers(gp, n)):
+            if remat:
+                x, a = checkpoint(body, lp, x, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = body(lp, x)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -397,6 +426,20 @@ class LM:
             aux_total = aux_total + aux
         x = apply_norm(params["final_norm"], x, cfg.norm)
         return self._logits(params, x), aux_total
+
+    def loss_fn(self, params, batch):
+        """Training forward + causal CE loss. batch: tokens, labels [+stubs].
+
+        The mean over (B, S) of logsumexp of the f32 logits minus the
+        label's logit, plus ``MOE_AUX_COEF`` times the MoE load-balance term;
+        the forward routes with capacity (not dropless), as JAX's does."""
+        logits, aux_total = self.forward_logits(params, batch)
+        logits = logits.to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          batch["labels"][..., None].to(torch.int64))[..., 0]
+        loss = torch.mean(lse - ll)
+        return loss + MOE_AUX_COEF * aux_total
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:

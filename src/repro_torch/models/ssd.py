@@ -115,8 +115,12 @@ def ssd_forward(p, cfg: ArchConfig, u):
     # intra-chunk (dual / attention-like) term
     rel = seg[:, :, :, None, :] - seg[:, :, None, :, :]  # (B,C#,Qi,Qj,H)
     causal = torch.tril(torch.ones(q, q, dtype=torch.bool, device=u.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(rel),
-                        torch.zeros((), dtype=rel.dtype, device=u.device))
+    # exp of the masked exponent, where JAX takes where(causal, exp(rel), 0):
+    # the same values (exp(-inf) = 0), but above the diagonal rel > 0 and
+    # exp(rel) overflows in f32 at long chunks, so JAX's gradient there is
+    # 0 · inf = NaN; here the masked branch's gradient is exp(-inf) = 0
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], rel,
+                                  float("-inf")))
     scores = torch.einsum("bcihn,bcjhn->bcijh", cc, bc) * decay.to(cc.dtype)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
 

@@ -7,8 +7,9 @@ computed in float32 and cast back to the parameter's dtype. The paper
 trains every model with Adam (Tab. 3); AdamW and SGD serve the other
 architectures and ablations. The optimizers are functional — ``apply``
 returns new tensors and leaves its inputs alone — so the trainer's health
-guard can roll a step back by selection. Parameters may nest dicts (the
-halo model's do); the optimizer state mirrors their structure.
+guard can roll a step back by selection. Parameters may nest dicts and
+lists (the halo model's nest dicts; the LM zoo's keep a list of layer
+groups); the optimizer state mirrors their structure.
 """
 from __future__ import annotations
 
@@ -49,18 +50,24 @@ def linear_warmup_cosine(lr: float, warmup: int, total_steps: int,
 
 
 def _leaves(tree) -> list:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of nested dicts and lists, in insertion order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
-    """fn over the leaves of a nested dict `tree` and the matching leaves
-    of `rest` (dicts with the same keys), keeping `tree`'s structure."""
+    """fn over the leaves of nested dicts and lists `tree` and the matching
+    leaves of `rest` (trees of the same structure), keeping `tree`'s
+    structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -69,6 +76,9 @@ def _unzip(tree, n: int) -> tuple:
     if isinstance(tree, dict):
         parts = {k: _unzip(v, n) for k, v in tree.items()}
         return tuple({k: p[i] for k, p in parts.items()} for i in range(n))
+    if isinstance(tree, list):
+        parts = [_unzip(v, n) for v in tree]
+        return tuple([p[i] for p in parts] for i in range(n))
     return tree
 
 

@@ -4,7 +4,8 @@ pair, the fused aggregate+transform pair and the phased SpMM launches of
 the split-phase schedule; flash attention in float32 and bfloat16 at every
 head width it is built for; the kernels/ops.py entry points on one
 partition's streams; the sim backend's exchange on a side CUDA stream;
-and the LM serve path (no custom kernel) card against CPU. Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
+and the LM serve and training paths (no custom kernel) card against CPU.
+Needs a CUDA card and nvcc; skips without a card. Imports no JAX, so it runs on a machine with
 only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -628,3 +629,37 @@ def test_cuda_serve_matches_the_cpu(arch):
         assert float((got - want).norm() / want.norm()) < 1e-4
     assert (serve_with(lm, card, 2, 12, 4)["sample_output"]
             == serve_with(lm, host, 2, 12, 4)["sample_output"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-moe-1b-a400m"])
+def test_cuda_lm_loss_and_gradients_match_the_cpu(arch):
+    """The LM training loss and its gradients (autograd through the plain
+    model; no custom kernel) on the card against the same port on the CPU
+    from the same parameters (drawn on the card), one dense and one MoE
+    arch, reduced, f32: the loss and every gradient leaf within 1e-5
+    relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the training path runs on it")
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.device import exact_f32_matmul
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.model import LM
+    exact_f32_matmul()
+    lm = LM(get_arch(arch).reduced())
+    card = lm.init_params(torch.Generator("cuda").manual_seed(0))
+    host = tree_map(lambda x: x.cpu(), card)
+    toks = np.random.default_rng(0).integers(0, lm.cfg.vocab_size, (2, 16))
+    seen = {}
+    for dev, params in (("cuda", card), ("cpu", host)):
+        t = torch.from_numpy(toks).to(dev)
+        seen[dev] = loss_and_grads(lm, params, {
+            "tokens": t, "labels": torch.roll(t, -1, 1)})
+    (loss, grads), (want_loss, want_grads) = seen["cuda"], seen["cpu"]
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    pairs = list(zip(tree_leaves(grads), tree_leaves(want_grads)))
+    assert len(pairs) == len(tree_leaves(host))
+    for got, want in pairs:
+        assert got.is_cuda
+        assert float((got.cpu() - want).norm()) <= 1e-5 * float(want.norm())

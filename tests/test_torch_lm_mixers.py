@@ -6,7 +6,8 @@ numpy-seeded inputs, parameters carried over from the JAX init functions.
     sequential loop;
 (b) SSD: forward on a ragged tail (19 tokens, chunk 8) and on 24 (with the
     decode cache it returns), the state continuation (forward cache ==
-    decode cache), decode steps;
+    decode cache), decode steps; at chunk 256 the gradients the port keeps
+    finite where JAX's are NaN in f32;
 (c) MLA: self-attention, and decode from an empty cache with the full
     cache and with a ring (sliding window 8, 12 steps: the slots wrap);
 (d) MoE: the block and grouped dispatch, with capacity and dropless; the
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
 import _torch_threads  # noqa: F401
 
@@ -183,6 +185,55 @@ def test_ssd_decode_matches_jax():
         y, c = ssd.ssd_decode(tp, cfg, tu[:, t:t + 1], c)
         close(y, jy)
         _close_tree(c, jc)
+
+
+def test_ssd_gradients_finite_at_a_long_chunk_where_jax_is_nan():
+    """A known divergence (ROADMAP Queue 3): at mamba2-780m's published
+    chunk of 256 the intra-chunk decay's exponent above the diagonal (the
+    masked entries) passes the f32 exp range, so JAX's where(causal,
+    exp(rel), 0) has NaN gradients in f32 (0 · inf). The port takes
+    exp(where(causal, rel, -inf)): the same forward, finite gradients. In
+    f32: the forward within 1e-5 of JAX's, JAX's gradients NaN (in the
+    float64 model too: dt and the decay are f32 in both packages), the
+    port's finite. The port's float64 gradients of the parameters and the
+    input at chunk 256 are held within 1e-5 of JAX's on the first 48
+    tokens (a ragged tail: the decay's exponent stays inside the f32 range,
+    so JAX's are finite)."""
+    jcfg, cfg, jp, tp = carried(jssd.init_ssd, "mamba2-780m", 4,
+                                ssm_chunk=256)
+    rng = np.random.default_rng(6)
+    ju, tu = _u(rng, 1, 256, cfg.d_model, scale=1.0)
+    w = rng.standard_normal((1, 256, cfg.d_model))
+
+    def jloss(p, u):
+        return jnp.sum(jssd.ssd_forward(p, jcfg, u)[0] * w)
+
+    def grads(p, u):
+        p = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+        u = u.detach().clone().requires_grad_()
+        y = ssd.ssd_forward(p, cfg, u)[0]
+        (y * torch.from_numpy(w).to(u.dtype)).sum().backward()
+        return y.detach(), [p[k].grad for k in sorted(p)] + [u.grad]
+
+    jgrad = jax.jit(jax.value_and_grad(
+        lambda p, u: (jloss(p, u), jssd.ssd_forward(p, jcfg, u)[0]),
+        argnums=(0, 1), has_aux=True))
+    (_, jy32), jg32 = jgrad(*jax.tree.map(
+        lambda a: a.astype(jnp.float32), (jp, ju)))
+    assert not all(bool(jnp.all(jnp.isfinite(g)))
+                   for g in jax.tree.leaves(jg32))
+    y32, g32 = grads(*tree_map(lambda t: t.float(), (tp, tu)))
+    assert all(bool(torch.isfinite(g).all()) for g in g32)
+    close(y32, jy32)
+    _, jg = jgrad(jp, ju)
+    assert not all(bool(jnp.all(jnp.isfinite(g)))
+                   for g in jax.tree.leaves(jg))
+    w = w[:, :48]
+    _, jg = jgrad(jp, ju[:, :48])
+    _, g = grads(tp, tu[:, :48])
+    for got, want in zip(g, jax.tree.leaves(jg)):
+        assert bool(jnp.all(jnp.isfinite(want)))
+        close(got, want)
 
 
 # --------------------------------------------------------------- (c) MLA

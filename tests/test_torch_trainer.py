@@ -1,6 +1,8 @@
 """The port's training step + Adam against the JAX package's jitted step,
-the health guard's rollback, and the command line on the CPU."""
+the health guard's rollback, and the command line on the CPU (the GCN
+workload, and the LM workload's flags, result keys and checkpoint)."""
 import ast
+import dataclasses
 import json
 import math
 import os
@@ -28,7 +30,8 @@ from repro_torch.core import (HealthConfig, ModelConfig, PipeConfig,  # noqa: E4
                               PipeGCN, make_train_step, params_from_jax,
                               train_pipegcn)
 from repro_torch.data import GraphDataPipeline  # noqa: E402
-from repro_torch.launch.train import UNPORTED, main, parser  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.train import main, parser, train_lm  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 
 
@@ -176,13 +179,13 @@ def _jax_launcher_flags() -> dict:
     return flags
 
 
-def _jax_result_keys() -> set:
-    """The keys of the dict the JAX launcher's `run_gcn` returns, read
-    from the text of its `out = {...}` literal, so that JAX is not
-    imported."""
+def _jax_result_keys(runner: str = "run_gcn") -> set:
+    """The keys of the dict the JAX launcher's `runner` (run_gcn or run_lm)
+    returns, read from the text of its `out = {...}` literal, so that JAX
+    is not imported."""
     text = (Path(__file__).resolve().parents[1] / "src" / "repro" / "launch"
             / "train.py").read_text()
-    literal = text.split("def run_gcn(")[1].split("out = {", 1)[1]
+    literal = text.split(f"def {runner}(")[1].split("out = {", 1)[1]
     return set(re.findall(r'"(\w+)":', literal.split("}", 1)[0]))
 
 
@@ -201,41 +204,132 @@ def test_cli_result_has_every_jax_result_key(capsys):
     capsys.readouterr()
 
 
-# (flag, value or None for a store_true flag, ROADMAP Queue 1 item)
-UNPORTED_CASES = [
-    ("--workload", "lm", 12), ("--arch", "starcoder2-3b", 12),
-    ("--reduced", None, 12), ("--steps", "10", 12), ("--batch", "2", 12),
-    ("--seq", "64", 12),
-]
-
-
 def test_cli_parses_every_jax_launcher_flag():
     """The port's parser defines every flag of the JAX launcher with the
-    same default; the flags it does not run are exactly UNPORTED_CASES."""
+    same default, and refuses none of them: the refusal table is gone."""
     flags = _jax_launcher_flags()
     assert len(flags) >= 41, sorted(flags)
     ap = parser()
     for flag, default in flags.items():
         dest = flag[2:].replace("-", "_")
         assert ap.get_default(dest) == default, (flag, default)
-    unported = {"--" + d.replace("_", "-")
-                for _, dests in UNPORTED.values() for d in dests}
-    assert unported == {f for f, _, _ in UNPORTED_CASES}
-    assert unported <= set(flags)
+    assert {"--workload", "--arch", "--reduced", "--steps", "--batch",
+            "--seq"} <= set(flags)
+    assert not hasattr(train_cli, "UNPORTED")
+    assert not hasattr(train_cli, "unported_flags")
 
 
-@pytest.mark.parametrize("flag,value,item", UNPORTED_CASES)
-def test_cli_refuses_unported_flags(capsys, flag, value, item):
-    """Each unported flag away from its default exits 2 with "not
-    ported" and its own ROADMAP item."""
-    with pytest.raises(SystemExit) as err:
-        main(["--device", "cpu", "--dataset", "tiny", flag]
-             + ([value] if value is not None else []))
-    assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert "not ported" in msg and flag in msg
-    assert f"ROADMAP Queue 1 item {item}:" in msg
-    assert msg.count("item ") == 1
+# The LM workload on the CPU: a GCN-side run on tiny and the reduced LM at
+# a small batch, so each run takes well under a second
+LM_BASE = ["--device", "cpu", "--dataset", "tiny", "--epochs", "1",
+           "--eval-every", "1", "--workload", "lm", "--reduced", "--steps",
+           "2", "--batch", "2", "--seq", "16"]
+
+
+def _without(argv, flag, takes_value=True):
+    i = argv.index(flag)
+    return argv[:i] + argv[i + 1 + takes_value:]
+
+
+def _lm_run(capsys, argv):
+    out = main(argv)
+    printed = capsys.readouterr().out
+    steps = [line for line in printed.splitlines() if line.startswith("step")]
+    return out, steps, printed
+
+
+def _small_full(real):
+    """A stand-in for an arch's full config that its reduced() still cuts
+    (d_ff 320 → 256, vocabulary 600 → 512), so --reduced acts on the CPU."""
+    def get_arch(arch):
+        return dataclasses.replace(real(arch).reduced(), d_ff=320,
+                                   vocab_size=600)
+    return get_arch
+
+
+# (flag, value or None for a store_true flag): each LM flag of the JAX
+# launcher, run with and without it on top of LM_BASE
+LM_FLAG_CASES = [("--workload", "lm"), ("--arch", "starcoder2-3b"),
+                 ("--reduced", None), ("--steps", "3"), ("--batch", "3"),
+                 ("--seq", "24")]
+
+
+@pytest.mark.parametrize("flag,value", LM_FLAG_CASES)
+def test_cli_lm_flags_act_as_in_jax(capsys, monkeypatch, flag, value):
+    """Each LM flag changes the result or the printed step lines as the
+    JAX launcher's does: --workload lm runs run_lm instead of run_gcn,
+    --arch picks the model, --reduced cuts its config, --steps the step
+    count (one "step" line each, as max(steps // 10, 1) = 1), --batch and
+    --seq the TokenStream batches, and with them the losses."""
+    if flag == "--reduced":
+        monkeypatch.setattr(train_cli, "get_arch",
+                            _small_full(train_cli.get_arch))
+    if flag not in LM_BASE:
+        with_argv, without_argv = LM_BASE + [flag, value], LM_BASE
+    elif value is None or flag == "--workload":
+        with_argv = LM_BASE
+        without_argv = _without(LM_BASE, flag, value is not None)
+    else:
+        with_argv = _without(LM_BASE, flag) + [flag, value]
+        without_argv = LM_BASE
+    out, steps, _ = _lm_run(capsys, with_argv)
+    base, base_steps, base_printed = _lm_run(capsys, without_argv)
+    assert out["workload"] == "lm" and out["device"] == "cpu"
+    assert all(math.isfinite(out[k]) for k in ("first_loss", "last_loss"))
+    if flag == "--workload":
+        assert base["workload"] == "gcn" and not base_steps
+        assert "matmul order" in base_printed and len(steps) == 2
+        return
+    assert out["reduced"] is True
+    assert base["reduced"] is (flag != "--reduced")
+    if flag == "--arch":
+        assert (out["arch"], base["arch"]) == ("starcoder2-3b", "qwen3-8b")
+    if flag == "--steps":
+        assert len(steps) == 3 and steps[:2] == base_steps
+        assert out["first_loss"] == base["first_loss"]
+        assert out["last_loss"] != base["last_loss"]
+        return
+    assert len(steps) == len(base_steps) == 2
+    assert out["first_loss"] != base["first_loss"]
+
+
+def test_cli_lm_result_has_every_jax_result_key(capsys):
+    """The LM result has exactly the keys of the JAX launcher's `run_lm`
+    result plus `device`, and prints it whole as JSON, as JAX does."""
+    keys = _jax_result_keys("run_lm")
+    assert keys == {"workload", "arch", "reduced", "first_loss", "last_loss",
+                    "steps_per_sec"}
+    out, steps, printed = _lm_run(capsys, LM_BASE)
+    assert set(out) == keys | {"device"}
+    assert json.loads(printed[printed.index("\n{") + 1:]) == out
+    assert out["steps_per_sec"] > 0
+    assert steps == [f"step {i:5d} loss {v:.4f}" for i, v in
+                     ((0, out["first_loss"]), (1, out["last_loss"]))]
+
+
+def test_cli_lm_ckpt_dir_saves_the_final_parameters(capsys, tmp_path):
+    """--ckpt-dir saves the final parameters at step --steps, as JAX's
+    run_lm does; they restore leaf for leaf, bit-equal to the same run
+    through train_lm."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    ckpt = str(tmp_path / "lm")
+    main(LM_BASE + ["--ckpt-dir", ckpt, "--seed", "2"])
+    capsys.readouterr()
+    assert latest_step(ckpt) == 2
+    lm = LM(get_arch("qwen3-8b").reduced())
+    params = lm.init_params(torch.Generator().manual_seed(2))
+    _, want, _ = train_lm(lm, params, adamw(linear_warmup_cosine(
+        3e-4, 10, 2), max_grad_norm=1.0), iter(TokenStream(
+            lm.cfg.vocab_size, 16, 2, seed=2)), 2, log=None)
+    got = restore_checkpoint(ckpt, None, want)
+    leaves, want_leaves = jax.tree.leaves(got), jax.tree.leaves(want)
+    assert len(leaves) == len(want_leaves) > 0
+    for a, b in zip(leaves, want_leaves):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # (flag, its value or None for a store_true flag, the flags it needs): the
