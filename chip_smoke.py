@@ -303,6 +303,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
                (whether it repeats the CLI bit for bit is reported, with
                the backward's indexed-accumulation kernels where it does
                not) and on the CPU: every loss within 1e-5.
+  7g. dryrun the production dry-run (launch/dryrun.py, dryrun_pipegcn.py):
+             rank 0 of the 16×16 (256 ranks) or 2×16×16 (512) mesh on a
+             fake process group, every collective a no-op, at its true
+             production shapes on the card (every line carries the card's
+             name and power limit):
+             - PipeGCN at PROD (papers100M-scale rank 0: 434,176 inner
+               nodes, 6,553,600 edges) on 16×16: pipegcn fused and per
+               layer, vanilla, and fused under --overlap split-phase; at
+               SMALL (Reddit-scale) on 2×16×16; the COO engine, as JAX's
+               dry-run, so none of the seven kernels runs. Each: median
+               step ms of 3, peak bytes beside the argument bytes,
+               boundary collectives equal to expected_boundary_collectives
+               (2 fused, 2L-1 per layer) and to the all-to-alls counted,
+               the bytes handed to the exchange equal to JAX's wire-byte
+               formula;
+             - qwen3-8b on 16×16, all four shapes abstract (meta): argument
+               bytes, the collective table (count and bytes per type),
+               roofline terms; then on the card every shape whose reckoned
+               peak (_dryrun_reckon) fits 75% of the card, train_4k and
+               decode_32k at least: median step ms of 2, peak bytes beside
+               the argument bytes (equal to the abstract run's), the card's
+               collective table beside the abstract one and equal to it,
+               count and bytes of every type;
+             - granite-moe train_4k --opt-sharding, abstract;
+             - no port kernel launched in the phase.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -4163,6 +4188,193 @@ def phase_lm_train():
     log(f"lm_train: phase took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------
+# The production dry-run: rank 0 of the 16×16 and 2×16×16 meshes on a fake
+# process group (every collective a no-op), PipeGCN and the LM zoo
+# ---------------------------------------------------------------------
+
+# (multi_pod, variant, fuse_exchange, overlap) of the PipeGCN runs: PROD
+# (papers100M-scale rank 0) on 16×16, SMALL (Reddit-scale) on 2×16×16
+DRYRUN_GCN = (
+    (False, "pipegcn", True, "auto"),
+    (False, "pipegcn", False, "auto"),
+    (False, "vanilla", True, "auto"),
+    (False, "pipegcn", True, "split-phase"),
+    (True, "pipegcn", True, "auto"),
+)
+DRYRUN_LM_ARCH = "qwen3-8b"
+DRYRUN_MOE_ARCH = "granite-moe-1b-a400m"
+DRYRUN_STEPS = 2                   # timed card steps per LM shape
+DRYRUN_GCN_STEPS = 3
+DRYRUN_CARD_SHARE = 0.75           # reckoned peak / card memory to run it
+DRYRUN_MUST_RUN = ("train_4k", "decode_32k")
+
+
+def _dryrun_reckon(cfg, shape, args_bytes: int, chips: int) -> float:
+    """Rank 0's peak bytes reckoned from the spec layout (batch over
+    'data', heads and vocab over 'model'), before running it on the card:
+    train: the arguments twice (the functional Adam update keeps the old
+    parameters and state beside the new), remat's saved layer inputs, the
+    f32 logits three times (logits, log-softmax, gradient) and one layer's
+    f32 scores three times (scores, probs, gradient); prefill: the
+    arguments and one layer's f32 scores, masked scores and probs and the
+    cast probs; decode: the arguments and one layer's f32 scores over the
+    cache."""
+    data = chips // 16
+    b = max(shape.global_batch // data, 1)
+    h = max(cfg.num_heads // 16, 1)
+    dt = 2 if cfg.dtype == "bfloat16" else 4
+    s = shape.seq_len
+    if shape.mode == "train":
+        acts = cfg.num_layers * b * s * cfg.d_model * dt
+        logits = 3 * b * s * (cfg.padded_vocab // 16) * 4
+        return 2 * args_bytes + acts + logits + 3 * b * h * s * s * 4
+    if shape.mode == "prefill":
+        return args_bytes + b * h * s * s * (4 + 4 + 4 + dt)
+    t = min(s, cfg.sliding_window) if cfg.sliding_window else s
+    return args_bytes + b * cfg.num_heads * t * 4
+
+
+def _dryrun_gcn(card):
+    from repro_torch.core.trace_utils import expected_boundary_collectives
+    from repro_torch.launch.dryrun_pipegcn import dryrun_pipegcn
+    rows = []
+    for mp, variant, fuse, overlap in DRYRUN_GCN:
+        r = dryrun_pipegcn(mp, variant, fuse=fuse, overlap=overlap,
+                           device="cuda", steps=DRYRUN_GCN_STEPS)
+        sz = r["sizes"]
+        fused = fuse and variant != "vanilla"
+        want = expected_boundary_collectives(sz["num_layers"], fused)
+        assert want == (2 if fused else 2 * sz["num_layers"] - 1)
+        assert r["boundary_collectives_per_step"] == want, r
+        assert r["boundary_collectives_expected"] == want, r
+        assert r["collective_counts_per_device"]["all-to-all"] == want, r
+        dims = [sz["feat_dim"]] + [sz["hidden"]] * (sz["num_layers"] - 1)
+        wire = r["chips"] * sz["slot"] * (sum(dims) + sum(dims[1:])) * 4
+        assert r["boundary_wire_bytes"] == r["recorded_wire_bytes"] == wire
+        assert r["peak_bytes"] >= r["argument_size_in_bytes"] > 0, r
+        assert math.isfinite(r["step_ms"]) and r["step_ms"] > 0, r
+        if overlap == "split-phase":
+            assert "scatter-add" in r["overlap_events"], r
+        tag = (f"{'SMALL 2x16x16' if mp else 'PROD 16x16'} {variant} "
+               f"{'fused' if fuse else 'per-layer'} {overlap}")
+        log(f"dryrun [{card}]: pipegcn {tag}: step {r['step_ms']:.3f} ms "
+            f"(of {DRYRUN_GCN_STEPS}: {r['step_ms_all']}), peak "
+            f"{r['peak_bytes']} B beside {r['argument_size_in_bytes']} B of "
+            f"arguments; boundary collectives {want} (expected {want}) OK; "
+            f"wire {wire} B == JAX's formula OK; collectives "
+            f"{r['collective_counts_per_device']}")
+        rows.append({k: r[k] for k in (
+            "arch", "multi_pod", "fuse_exchange", "overlap", "chips",
+            "step_ms", "step_ms_all", "peak_bytes", "argument_size_in_bytes",
+            "boundary_collectives_per_step", "boundary_wire_bytes",
+            "collective_counts_per_device", "collective_bytes_per_device",
+            "t_compute", "t_memory", "t_collective", "bottleneck")})
+    return rows
+
+
+def _dryrun_lm(card):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import dryrun_one, variant_for
+    from repro_torch.models.config import INPUT_SHAPES
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = {}
+    for name, shape in INPUT_SHAPES.items():
+        meta = dryrun_one(DRYRUN_LM_ARCH, name, device="meta")
+        cfg = variant_for(get_arch(DRYRUN_LM_ARCH), name)[0]
+        reckon = _dryrun_reckon(cfg, shape, meta["argument_size_in_bytes"],
+                                meta["chips"])
+        fits = reckon <= DRYRUN_CARD_SHARE * total
+        assert fits or name not in DRYRUN_MUST_RUN, (name, reckon)
+        row = {"meta": meta, "reckoned_peak_bytes": reckon,
+               "card_bytes": total}
+        log(f"dryrun [{card}]: {DRYRUN_LM_ARCH} {name} 16x16 abstract: "
+            f"arguments {meta['argument_size_in_bytes']} B, reckoned peak "
+            f"{reckon:.4g} B of {total} ({'runs' if fits else 'skipped'} on "
+            f"the card); collectives {meta['collective_counts_per_device']}, "
+            f"{meta['collective_total_bytes']} B; bottleneck "
+            f"{meta['bottleneck']}")
+        if fits:
+            r = dryrun_one(DRYRUN_LM_ARCH, name, device="cuda",
+                           steps=DRYRUN_STEPS)
+            assert (r["argument_size_in_bytes"]
+                    == meta["argument_size_in_bytes"]), (r, meta)
+            assert r["peak_bytes"] >= r["argument_size_in_bytes"], r
+            assert math.isfinite(r["step_ms"]) and r["step_ms"] > 0, r
+            # the card's step issues the collectives the abstract run
+            # counted, each of the same size
+            for key in ("collective_counts_per_device",
+                        "collective_bytes_per_device"):
+                assert r[key] == meta[key], (key, r[key], meta[key])
+            assert r["collective_counts_per_device"]["all-gather"] > 0, r
+            row["card"] = r
+            log(f"dryrun [{card}]: {DRYRUN_LM_ARCH} {name} 16x16 card: step "
+                f"{r['step_ms']:.1f} ms (of {DRYRUN_STEPS}: "
+                f"{[round(t, 1) for t in r['step_ms_all']]}), peak "
+                f"{r['peak_bytes']} B beside {r['argument_size_in_bytes']} B "
+                f"of arguments (== abstract OK); collectives (== abstract "
+                f"OK) "
+                f"{r['collective_counts_per_device']}, "
+                f"{r['collective_total_bytes']} B")
+        rows[name] = row
+    log(f"dryrun [{card}]: collective table, {DRYRUN_LM_ARCH} 16x16, per "
+        f"device (count / bytes):")
+    from repro_torch.core.trace_utils import COLLECTIVE_OPS
+    log("  shape        mode " + "".join(f"{k:>26}" for k in COLLECTIVE_OPS))
+    for name, row in rows.items():
+        for mode in ("meta", "card"):
+            m = row.get(mode)
+            if m is None:
+                continue
+            log(f"  {name:<12} {mode:<5}" + "".join(
+                f"{m['collective_counts_per_device'][k]:>8} / "
+                f"{m['collective_bytes_per_device'][k]:<15}"
+                for k in COLLECTIVE_OPS))
+    moe = dryrun_one(DRYRUN_MOE_ARCH, "train_4k", device="meta",
+                     opt_sharding=True)
+    assert sum(moe["collective_counts_per_device"].values()) > 0, moe
+    log(f"dryrun [{card}]: {DRYRUN_MOE_ARCH} train_4k 16x16 --opt-sharding "
+        f"abstract: arguments {moe['argument_size_in_bytes']} B, collectives "
+        f"{moe['collective_counts_per_device']}, "
+        f"{moe['collective_total_bytes']} B; bottleneck {moe['bottleneck']}")
+    assert all(name in rows and "card" in rows[name]
+               for name in DRYRUN_MUST_RUN)
+    return rows, moe
+
+
+def phase_dryrun():
+    """The production dry-run on the card (see the module docstring, 7g)."""
+    import torch
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    torch.cuda.empty_cache()
+    reset_launches()
+    gcn = _dryrun_gcn(card)
+    lm, moe = _dryrun_lm(card)
+    launches = read_launches()
+    assert not any(launches.values()), launches
+    log(f"dryrun [{card}]: no port kernel launched in the phase "
+        f"({launches}) OK")
+    slim = {name: {"meta": {k: row["meta"][k] for k in (
+        "argument_size_in_bytes", "collective_counts_per_device",
+        "collective_bytes_per_device", "flops_per_device", "t_compute",
+        "t_memory", "t_collective", "bottleneck")},
+        "reckoned_peak_bytes": row["reckoned_peak_bytes"],
+        "card": {k: row["card"][k] for k in (
+            "step_ms", "step_ms_all", "peak_bytes",
+            "collective_counts_per_device", "collective_bytes_per_device")}
+        if "card" in row
+        else None} for name, row in lm.items()}
+    log(f"dryrun [{card}]: " + json.dumps(dict(
+        pipegcn=gcn, lm=slim, moe={k: moe[k] for k in (
+            "arch", "shape", "opt_sharding", "argument_size_in_bytes",
+            "collective_counts_per_device", "collective_bytes_per_device",
+            "bottleneck")})))
+    torch.cuda.empty_cache()
+    log(f"dryrun: phase took {time.perf_counter() - t0:.1f} s")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4223,6 +4435,7 @@ def main(argv) -> int:
     runs.update(phase_api(reddit, split_pipes))
     phase_serve()
     phase_lm_train()
+    phase_dryrun()
     phase_exchange(split_pipes, runs)
     for p in split_pipes:
         phase_overlap(p)

@@ -21,8 +21,14 @@ The backend wrapper also counts the bytes it hands the exchange
 package's ``traced_wire_bytes``, which sums the operand bytes of every
 all_to_all in the traced step. `step_wire_bytes` gives that figure for one
 training step.
+
+`CollectiveCounter` counts the collectives of any eager program as they
+are dispatched (the dry-run's counterpart of the JAX package's
+``collective_bytes``, which parses them out of partitioned HLO).
 """
 from __future__ import annotations
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.pipegcn import _ExchangeBase
 
@@ -195,3 +201,78 @@ def check_split_schedule(model, topo, data, train: bool = True,
                              f"{rec.events}\n  expected {expected}")
     check_overlap(rec.events)
     return rec.events
+
+
+# ---------------------------------------------------------------- collectives
+
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+# op name (functional, autograd-functional and in-place c10d ops) -> the
+# JAX package's HLO name of the collective
+_COLLECTIVE_KIND = {
+    **dict.fromkeys(("all_reduce", "all_reduce_", "all_reduce_coalesced",
+                     "all_reduce_coalesced_", "allreduce_",
+                     "allreduce_coalesced_"), "all-reduce"),
+    **dict.fromkeys(("all_gather_into_tensor", "all_gather_into_tensor_out",
+                     "all_gather_into_tensor_coalesced", "allgather_",
+                     "_allgather_base_", "allgather_coalesced_",
+                     "allgather_into_tensor_coalesced_"), "all-gather"),
+    **dict.fromkeys(("reduce_scatter_tensor", "reduce_scatter_tensor_coalesced",
+                     "reduce_scatter_", "_reduce_scatter_base_",
+                     "reduce_scatter_tensor_coalesced_"), "reduce-scatter"),
+    **dict.fromkeys(("all_to_all_single", "alltoall_base_", "alltoall_",
+                     "shard_dim_alltoall"), "all-to-all"),
+    **dict.fromkeys(("send", "recv_"), "collective-permute"),
+}
+# (DTensor redistributes Shard(i) -> Shard(j) by its own op,
+# ``_dtensor::shard_dim_alltoall``, an all-to-all)
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "c10d", "_dtensor")
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(y) for y in x)
+    return x.numel() * x.element_size() if hasattr(x, "numel") else 0
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Counts the collectives issued while it is active (``with
+    CollectiveCounter() as c:``), and their payload bytes per device, under
+    the JAX package's names (`COLLECTIVE_OPS`): `counts[kind]`,
+    `bytes[kind]`.
+
+    It sees every ``torch.distributed`` collective as it is dispatched: the
+    functional ones that DTensor's redistributions issue, DTensor's own
+    all-to-all (``_dtensor::shard_dim_alltoall``, Shard(i) -> Shard(j)) and
+    the in-place c10d ones (``all_to_all_single``, ``all_reduce``, ...). A
+    collective's bytes are those of its result, as the JAX package counts
+    the result type of an HLO collective: an all-gather's gathered tensor,
+    a reduce-scatter's shard. The ops counted are the ones that ran, one by
+    one, so a layer loop counts each of its layers: no correction like
+    JAX's `while_mult` (an HLO loop body counted once) is needed. Works on
+    ``meta`` tensors and under the fake process group, where the
+    collectives move nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = dict.fromkeys(COLLECTIVE_OPS, 0)
+        self.bytes = dict.fromkeys(COLLECTIVE_OPS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if DTensor in types:
+            # a mode runs before tensor subclasses: let DTensor turn the op
+            # into local ops and collectives first, which come back here
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = (_COLLECTIVE_KIND.get(func._overloadpacket.__name__)
+                if func.namespace in _COLLECTIVE_NAMESPACES else None)
+        if kind is not None:
+            self.counts[kind] += 1
+            # functional ops return the result; in-place c10d ops write it
+            # into their first argument
+            self.bytes[kind] += _nbytes(args[0] if func.namespace == "c10d"
+                                        else out)
+        return out

@@ -1,17 +1,98 @@
-"""Device layout of the partitions, the survivor group of an elastic
-plan, and the launcher of a job's ranks as processes of one host.
+"""Meshes, the device layout of the partitions, the survivor group of an
+elastic plan, the fake process group of the dry-run, and the launcher of
+a job's ranks as processes of one host.
 
-Port of the JAX package's ``repro.launch.mesh`` partition layout and
-survivor mesh. A device here is a ``torch.distributed`` rank (one process
-per rank, one card each under NCCL), or, on the sim backend, a block of
-co-resident partitions on the one device. The JAX mesh constructors and
-the TPU roofline constants have no counterpart: the port builds no mesh.
+Port of the JAX package's ``repro.launch.mesh``. A device here is a
+``torch.distributed`` rank (one process per rank, one card each under
+NCCL), or, on the sim backend, a block of co-resident partitions on the
+one device. The mesh constructors build a ``DeviceMesh`` over the ranks of
+the default process group with JAX's shapes and axis names. Functions, not
+module constants: importing this module starts no process group.
+
+Production mesh (JAX's shapes and axis names, so shard shapes compare):
+  single pod: (16, 16)    ("data", "model")
+  two pods:   (2, 16, 16) ("pod", "data", "model")
+
+JAX lays these out on TPU v5e pods. The port's roofline constants are
+those of an H100 SXM card in a cluster of 8-GPU NVLink nodes (below). A
+16×16 mesh of such nodes crosses nodes on both axes (the 8 cards of a
+node hold half of one "model" row), so the collective term takes the
+per-card inter-node rate; this node mapping is a divergence from JAX's
+one-pod ICI torus (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import tempfile
+
+# Roofline constants of one NVIDIA H100 80GB HBM3 (SXM5, 700 W).
+PEAK_FLOPS_BF16 = 989e12   # dense bf16 tensor-core FLOP/s (H100 SXM datasheet)
+PEAK_FLOPS_F32 = 67e12     # f32 FLOP/s outside the tensor cores (datasheet;
+#                            the port's f32 matmuls run with TF32 off)
+HBM_BW = 3.35e12           # HBM3 bytes/s (H100 SXM datasheet)
+HBM_BYTES = 80e9           # HBM capacity in bytes
+# Collective term: one 400 Gb/s NDR InfiniBand port per card (the DGX H100
+# layout), 50e9 B/s per direction, since the production meshes cross nodes
+# on both axes. Within a node NVLink 4 gives 450e9 B/s per direction
+# (900 GB/s bidirectional, H100 SXM datasheet).
+NET_BW = 50e9
+NVLINK_BW = 450e9
+
+
+def make_mesh(shape, axes, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of `shape` with dim names `axes` over the ranks of
+    the default process group (row-major, as ``jax.make_mesh`` lays out
+    devices). `device_type` "cpu" for a mesh whose tensors live on the CPU
+    or on ``meta``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
+def make_host_mesh(num_devices: int | None = None, axis: str = "parts",
+                   device_type: str = "cuda"):
+    """1-D mesh over the process group's ranks (or the first
+    `num_devices`), for the PipeGCN SPMD backend and small-scale tests."""
+    return make_mesh((num_devices or _world_size(),), (axis,), device_type)
+
+
+def make_partition_mesh(num_parts: int, parts_per_device: int = 1,
+                        axis: str = "parts", device_type: str = "cuda"):
+    """1-D mesh sized num_parts // parts_per_device, for the SPMD step with
+    any partitions-per-device ratio (`partition_layout`)."""
+    n_dev, _ = partition_layout(num_parts, parts_per_device)
+    return make_mesh((n_dev,), (axis,), device_type)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int, rank: int = 0):
+    """A default process group of `world_size` ranks in which this process
+    is `rank` and every collective is a no-op (torch.distributed's "fake"
+    backend: an all_gather copies the local input into every slot, a
+    reduction leaves it as it is). Rank `rank`'s program then runs alone at
+    its production shapes; the values it computes are not the job's.
+    Refuses to start inside another process group and always destroys
+    its own."""
+    import torch.distributed as dist
+    # registers the "fake" backend with torch.distributed
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _world_size() -> int:

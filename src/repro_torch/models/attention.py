@@ -6,9 +6,10 @@ Port of the JAX package's ``models/attention.py``, with its f32 casts of
 the scores. As there, the layer is plain PyTorch: sequences longer than
 BLOCKWISE_THRESHOLD take `blockwise_attention`, the online-softmax
 counterpart of the flash kernel (``kernels/flash_attention.py``) and its
-numerical oracle; the layer does not call the kernel. The JAX file's
-sharding rules (``attention_spec``, ``kv_cache_spec``) have no counterpart
-yet (ROADMAP). Functions are pure: a cache update returns new tensors.
+numerical oracle; the layer does not call the kernel. ``attention_spec``
+and ``kv_cache_spec`` give JAX's partition specs of the parameters and the
+cache (``shardctx.P``). Functions are pure: a cache update returns new
+tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope, make_dense, rms_head_norm
+from repro_torch.models.shardctx import P, shard_local
 
 NEG_INF = -1e30
 
@@ -44,6 +46,18 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype,
         p["knorm"] = torch.ones(hd, dtype=dtype, device=dev)
     if cross:
         p["gate"] = torch.zeros((), dtype=dtype, device=dev)  # tanh gate
+    return p
+
+
+def attention_spec(cfg: ArchConfig, cross: bool = False):
+    p = {"wq": P(None, "model"), "wk": P(None, "model"),
+         "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qkv_bias:
+        p.update(bq=P("model"), bk=P("model"), bv=P("model"))
+    if cfg.qk_norm:
+        p.update(qnorm=P(None), knorm=P(None))
+    if cross:
+        p["gate"] = P()
     return p
 
 
@@ -95,6 +109,16 @@ def _gqa_out(probs, v, h):
     return out.reshape(b, s, h, -1)
 
 
+@shard_local
+def gqa_attend(q, k, v, mask, dtype):
+    """The attention core: (B,S,H,hd) queries over (B,T,K,hd) keys and
+    values, f32 scores masked by `mask` (or None), probs cast to `dtype`
+    -> (B,S,H,vd)."""
+    scores = _gqa_scores(q, k).to(torch.float32)
+    probs = _softmax_probs(scores, mask, dtype)
+    return _gqa_out(probs, v, q.shape[2])
+
+
 def _softmax_probs(scores, mask, dtype):
     """softmax over the last axis of the f32 scores, masked ones -1e30,
     cast to `dtype`."""
@@ -111,6 +135,7 @@ Q_BLOCK = 1024
 KV_BLOCK = 1024
 
 
+@shard_local
 def blockwise_attention(q, k, v, positions, causal: bool, window: int,
                         q_block: int = Q_BLOCK, kv_block: int = KV_BLOCK):
     """Online-softmax attention over (q, kv) blocks.
@@ -120,6 +145,9 @@ def blockwise_attention(q, k, v, positions, causal: bool, window: int,
     b, s, h, hd = q.shape
     t, kheads = k.shape[1], k.shape[2]
     vd = v.shape[-1]                       # may differ from hd (MLA)
+    if q.device.type == "meta":
+        # nothing is allocated on meta: one block gives the same shapes
+        q_block, kv_block = s, t
     g = h // kheads
     assert s % q_block == 0 and t % kv_block == 0, (s, t)
     nq, nk = s // q_block, t // kv_block
@@ -187,19 +215,16 @@ def self_attention(p, cfg: ArchConfig, x, positions, use_rope: bool = True,
         out = blockwise_attention(q, k, v, positions, causal,
                                   cfg.sliding_window)
         return out.reshape(*x.shape[:-1], -1) @ p["wo"]
-    scores = _gqa_scores(q, k).to(torch.float32)
-    probs = _softmax_probs(
-        scores, _self_mask(positions, causal, cfg.sliding_window), x.dtype)
-    out = _gqa_out(probs, v, cfg.num_heads)
+    out = gqa_attend(q, k, v,
+                     _self_mask(positions, causal, cfg.sliding_window),
+                     x.dtype)
     return out.reshape(*x.shape[:-1], -1) @ p["wo"]
 
 
 def cross_attention(p, cfg: ArchConfig, x, memory, gated: bool = False):
     """Cross-attention to encoder / vision memory (no RoPE)."""
     q, k, v = _project_qkv(p, cfg, x, memory)
-    scores = _gqa_scores(q, k).to(torch.float32)
-    probs = _softmax_probs(scores, None, x.dtype)
-    out = _gqa_out(probs, v, cfg.num_heads)
+    out = gqa_attend(q, k, v, None, x.dtype)
     out = out.reshape(*x.shape[:-1], -1) @ p["wo"]
     if gated:
         out = torch.tanh(p["gate"]).to(out.dtype) * out
@@ -216,6 +241,15 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
     shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def kv_cache_spec(cfg: ArchConfig, shard_heads: bool):
+    """Shard kv-head axis when it divides the mesh; else shard cache length."""
+    if shard_heads:
+        return {"k": P("data", None, "model", None),
+                "v": P("data", None, "model", None)}
+    return {"k": P("data", "model", None, None),
+            "v": P("data", "model", None, None)}
 
 
 def _write_slot(cache, new, slot: int, inplace: bool = False):
@@ -246,7 +280,6 @@ def decode_attention(p, cfg: ArchConfig, x, cache, pos: int,
     slot = (pos % length) if cfg.sliding_window else pos
     k_cache = _write_slot(cache["k"], k_new, slot, inplace)
     v_cache = _write_slot(cache["v"], v_new, slot, inplace)
-    scores = _gqa_scores(q, k_cache).to(torch.float32)   # (B,1,K,G,T)
     idx = torch.arange(length, device=x.device)
     if cfg.sliding_window:
         # the ring holds the last `length` positions <= pos: slot t holds
@@ -256,10 +289,18 @@ def decode_attention(p, cfg: ArchConfig, x, cache, pos: int,
         valid = written >= 0
     else:
         valid = idx <= pos
-    probs = _softmax_probs(scores, valid[None, None, None, None, :], x.dtype)
-    out = _gqa_out(probs, v_cache, cfg.num_heads)
+    out = gqa_attend(q, k_cache, v_cache, valid[None, None, None, None, :],
+                     x.dtype)
     out = out.reshape(b, 1, -1) @ p["wo"]
     return out, {"k": k_cache, "v": v_cache}
+
+
+def _roll1(x, shift: int):
+    """torch.roll(x, shift, 1) as two slices (DTensor has no rule for
+    roll in every torch release)."""
+    if shift == 0:
+        return x
+    return torch.cat([x[:, -shift:], x[:, :-shift]], dim=1)
 
 
 def prefill_attention(p, cfg: ArchConfig, x, positions, cache, use_rope=True,
@@ -271,19 +312,19 @@ def prefill_attention(p, cfg: ArchConfig, x, positions, cache, use_rope=True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     s = x.shape[1]
-    scores = _gqa_scores(q, k).to(torch.float32)
-    probs = _softmax_probs(
-        scores, _self_mask(positions, True, cfg.sliding_window), x.dtype)
-    out = _gqa_out(probs, v, cfg.num_heads).reshape(*x.shape[:-1], -1) @ p["wo"]
+    out = gqa_attend(q, k, v, _self_mask(positions, True, cfg.sliding_window),
+                     x.dtype)
+    out = out.reshape(*x.shape[:-1], -1) @ p["wo"]
     length = cache["k"].shape[1]
     if cfg.sliding_window and length < s:
-        # ring layout: absolute position t sits at slot t % length
-        slots = (torch.arange(length, device=x.device) + (s - length)) % length
-        # every slot is written: the ring holds the last `length` positions
-        k_cache = cache["k"] if inplace else torch.empty_like(cache["k"])
-        v_cache = cache["v"] if inplace else torch.empty_like(cache["v"])
-        k_cache[:, slots] = k[:, -length:].to(k_cache.dtype)
-        v_cache[:, slots] = v[:, -length:].to(v_cache.dtype)
+        # ring layout: absolute position t sits at slot t % length. Every
+        # slot is written (the ring holds the last `length` positions), so
+        # the ring is the last positions rotated by (s - length) % length
+        shift = (s - length) % length
+        k_ring = _roll1(k[:, -length:], shift).to(cache["k"].dtype)
+        v_ring = _roll1(v[:, -length:], shift).to(cache["v"].dtype)
+        k_cache = cache["k"].copy_(k_ring) if inplace else k_ring
+        v_cache = cache["v"].copy_(v_ring) if inplace else v_ring
     else:
         k_cache = _write_slot(cache["k"], k, 0, inplace)
         v_cache = _write_slot(cache["v"], v, 0, inplace)

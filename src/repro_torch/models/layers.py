@@ -3,8 +3,10 @@
 Port of the JAX package's ``models/layers.py``, with its f32 casts (the
 norms and the rotary embedding compute in f32 and cast back). Parameters
 are plain dicts of tensors; an init function draws from the
-``torch.Generator`` it is given, on that generator's device. The JAX
-file's ``*_spec`` sharding rules have no counterpart yet (ROADMAP).
+``torch.Generator`` it is given, on that generator's device. Every init
+function has a matching ``*_spec`` giving the tree's partition specs
+(``shardctx.P``, JAX's ``PartitionSpec`` leaves: model axis = tensor
+parallel, data axis = batch/sequence) for the dry-run.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.models.shardctx import P
 
 
 def make_dense(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
@@ -31,6 +34,13 @@ def init_norm(dtype, dim, kind="rmsnorm", device="cuda"):
     p = {"scale": torch.ones(dim, dtype=dtype, device=dev)}
     if kind == "layernorm":
         p["bias"] = torch.zeros(dim, dtype=dtype, device=dev)
+    return p
+
+
+def norm_spec(kind="rmsnorm"):
+    p = {"scale": P(None)}
+    if kind == "layernorm":
+        p["bias"] = P(None)
     return p
 
 
@@ -99,6 +109,16 @@ def init_mlp(gen, dtype, d_model, d_ff, act="swiglu", bias=False):
     return p
 
 
+def mlp_spec(act="swiglu", bias=False):
+    p = {"wi": P(None, "model"), "wo": P("model", None)}
+    if act in ("swiglu", "geglu"):
+        p["wg"] = P(None, "model")
+    if bias:
+        p["bi"] = P("model")
+        p["bo"] = P(None)
+    return p
+
+
 def apply_mlp(p, x, act="swiglu"):
     h = x @ p["wi"]
     if "bi" in p:
@@ -122,8 +142,12 @@ def init_embed(gen, dtype, vocab, d_model):
     return {"table": make_dense(gen, (vocab, d_model), dtype, scale=0.02)}
 
 
+def embed_spec():
+    return {"table": P("model", None)}
+
+
 def apply_embed(p, tokens):
-    return p["table"][tokens]
+    return F.embedding(tokens, p["table"])
 
 
 def unembed_logits(embed_params, head, x, tie: bool):

@@ -6,7 +6,8 @@ k_rope; the decode cache stores only (c_kv, k_rope) per token — the paper's
 latent with up-projections (faithful math; the latent-space absorbed-matmul
 decode is a rewrite that does not change semantics).
 
-Port of the JAX package's ``models/mla.py``, with its f32 scores.
+Port of the JAX package's ``models/mla.py``, with its f32 scores and its
+partition specs (``mla_spec``, ``mla_cache_spec``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import apply_rope, make_dense
+from repro_torch.models.shardctx import P
 
 NEG_INF = -1e30
 
@@ -39,6 +41,17 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype):
     p["wk_b"] = make_dense(gen, (r, h * qk_nope), dtype)    # latent -> k_nope
     p["wv_b"] = make_dense(gen, (r, h * v_dim), dtype)      # latent -> v
     p["wo"] = make_dense(gen, (h * v_dim, d), dtype)
+    return p
+
+
+def mla_spec(cfg: ArchConfig):
+    p = {"wkv_a": P(None, None), "wk_rope": P(None, None),
+         "wk_b": P(None, "model"), "wv_b": P(None, "model"),
+         "wo": P("model", None)}
+    if cfg.q_lora_rank:
+        p.update(wq_a=P(None, None), wq_b=P(None, "model"))
+    else:
+        p["wq"] = P(None, "model")
     return p
 
 
@@ -86,21 +99,23 @@ def mla_self_attention(p, cfg: ArchConfig, x, positions):
     c_kv, k_rope = _latents(p, cfg, x, positions)
     k_nope, v = _expand(p, cfg, c_kv)
     s = x.shape[1]
+    # expanded MLA is standard MHA: concat nope+rope dims
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat(
+        [k_nope, k_rope[..., None, :].expand(
+            *k_nope.shape[:-1], cfg.qk_rope_dim)], dim=-1)
     if s > attn_mod.BLOCKWISE_THRESHOLD and s % attn_mod.Q_BLOCK == 0:
-        # expanded MLA is standard MHA: concat nope+rope dims
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
-        k_full = torch.cat(
-            [k_nope, k_rope[..., None, :].expand(
-                *k_nope.shape[:-1], cfg.qk_rope_dim)], dim=-1)
         out = attn_mod.blockwise_attention(q_full, k_full, v, positions,
                                            causal=True,
                                            window=cfg.sliding_window)
-        return out.reshape(*x.shape[:-1], -1) @ p["wo"]
-    mask = positions[None, :] <= positions[:, None]
-    if cfg.sliding_window:
-        mask &= positions[:, None] - positions[None, :] < cfg.sliding_window
-    return _attend(p, cfg, q_nope, q_rope, k_nope, k_rope, v,
-                   mask[None, :, None, :])
+    else:
+        mask = positions[None, :] <= positions[:, None]
+        if cfg.sliding_window:
+            mask &= (positions[:, None] - positions[None, :]
+                     < cfg.sliding_window)
+        out = attn_mod.gqa_attend(q_full, k_full, v,
+                                  mask[None, :, None, None, :], x.dtype)
+    return out.reshape(*x.shape[:-1], -1) @ p["wo"]
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -111,6 +126,12 @@ def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                                 device=dev),
             "k_rope": torch.zeros(batch, length, cfg.qk_rope_dim, dtype=dtype,
                                   device=dev)}
+
+
+def mla_cache_spec(cfg: ArchConfig):
+    # latent dims are small; shard cache length over model when batch is thin
+    return {"c_kv": P("data", "model", None),
+            "k_rope": P("data", "model", None)}
 
 
 def mla_decode(p, cfg: ArchConfig, x, cache, pos: int, inplace: bool = False):

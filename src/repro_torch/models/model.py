@@ -16,8 +16,19 @@ recording, each layer of the full-sequence forward runs under
 ``jax.checkpoint``): its activations are recomputed in the backward
 instead of kept, which changes memory, not numbers. Under
 ``torch.no_grad`` / ``inference_mode`` (the serve path) nothing is
-recomputed. Not here yet: the ``*_spec`` sharding trees (``param_specs``,
-``cache_specs``; the sharding-rules bullet of ROADMAP Queue 1 item 12).
+recomputed.
+
+``param_specs`` and ``cache_specs`` give JAX's partition-spec trees
+(``shardctx.P``; a stacked group's specs lead with None). With parameters,
+inputs and caches as DTensors laid out by them (``launch/specs.py``), the
+same entry points run a sharded program under ``shardctx.dtensor_ops()``:
+DTensor's ``implicit_replication`` (the plain tensors the model makes
+inside a step, such as positions, RoPE angles, masks and scalars, count
+as replicated) and a function mode that routes the few ops whose DTensor
+rules would gather a shard whole or fail to their shard-wise forms. The
+code here stays plain tensor code; only the attention core
+(``attention.gqa_attend``, ``blockwise_attention``) is marked to run on
+each rank's local shards.
 
 Entry points:
   init_params(gen)                        parameters drawn from `gen`
@@ -49,9 +60,11 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
-                                       init_embed, init_mlp, init_norm,
-                                       make_dense, rms_head_norm)
-from repro_torch.models.shardctx import constrain
+                                       embed_spec, init_embed, init_mlp,
+                                       init_norm, make_dense, mlp_spec,
+                                       norm_spec, rms_head_norm)
+from repro_torch.models.shardctx import (P, constrain, is_spec,
+                                         recompute_context)
 
 MOE_AUX_COEF = 0.01
 
@@ -148,6 +161,34 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec, dtype):
     return p
 
 
+def layer_spec_tree(cfg: ArchConfig, spec: LayerSpec):
+    p: dict[str, Any] = {"ln1": norm_spec(cfg.norm)}
+    if spec.mixer in ("attn", "xattn"):
+        p["mixer"] = attn.attention_spec(cfg, cross=spec.mixer == "xattn")
+    elif spec.mixer == "mla":
+        p["mixer"] = mla_mod.mla_spec(cfg)
+    elif spec.mixer == "ssd":
+        p["mixer"] = ssd_mod.ssd_spec(cfg)
+    elif spec.mixer == "rglru":
+        p["mixer"] = rglru_mod.rglru_spec(cfg)
+    if spec.cross:
+        p["lnx"] = norm_spec(cfg.norm)
+        p["xattn"] = attn.attention_spec(cfg, cross=True)
+    if spec.ffn != "none":
+        p["ln2"] = norm_spec(cfg.norm)
+        p["ffn"] = (moe_mod.moe_spec(cfg) if spec.ffn == "moe"
+                    else mlp_spec(cfg.act, bias=(cfg.norm == "layernorm")))
+    return p
+
+
+def _stacked_spec(tree, n: int):
+    """A group of n layers' spec tree: a leading None on every spec (the
+    stacked layer axis is not sharded), as JAX's ``stacked`` adds one."""
+    if n == 1:
+        return tree
+    return tree_map(lambda ps: P(None, *ps), tree, is_leaf=is_spec)
+
+
 def _ffn(p, cfg: ArchConfig, spec: LayerSpec, x, moe_dropless: bool):
     """The layer's closing FFN sublayer on the residual x: (x, aux), aux
     the MoE load-balance term or None."""
@@ -208,14 +249,39 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch, max_len, dtype,
     return c
 
 
+def layer_cache_spec(cfg: ArchConfig, spec: LayerSpec, shard_kv_heads: bool):
+    c: dict[str, Any] = {}
+    if spec.mixer == "attn":
+        c["kv"] = attn.kv_cache_spec(cfg, shard_kv_heads)
+    elif spec.mixer == "mla":
+        c["kv"] = mla_mod.mla_cache_spec(cfg)
+    elif spec.mixer == "ssd":
+        c["ssm"] = ssd_mod.ssd_cache_spec(cfg)
+    elif spec.mixer == "rglru":
+        c["lru"] = rglru_mod.rglru_cache_spec(cfg)
+    if spec.mixer == "xattn" or spec.cross:
+        mem_len = (cfg.num_audio_frames if cfg.is_encdec
+                   else cfg.num_image_tokens)
+        if shard_kv_heads:
+            xs = P("data", None, "model", None)
+        elif mem_len % 16 == 0:
+            xs = P("data", "model", None, None)
+        else:   # memory is small (encoder frames): replicate across model
+            xs = P("data", None, None, None)
+        c["xkv"] = {"k": xs, "v": xs}
+    return c
+
+
 def _fill_xkv(p, cfg: ArchConfig, memory):
     """Precompute cross-attention K/V from memory (paper-standard serving)."""
     k = memory @ p["wk"]
     v = memory @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    kh = k.reshape(*memory.shape[:-1], cfg.num_kv_heads, cfg.resolved_head_dim)
-    vh = v.reshape(*memory.shape[:-1], cfg.num_kv_heads, cfg.resolved_head_dim)
+    kh = k.reshape(*memory.shape[:-1], cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+    vh = v.reshape(*memory.shape[:-1], cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
     return {"k": kh, "v": vh}
 
 
@@ -351,6 +417,23 @@ class LM:
             params["enc_norm"] = init_norm(dtype, cfg.d_model, cfg.norm, dev)
         return params
 
+    def param_specs(self) -> dict:
+        """The partition spec of every parameter leaf (JAX's tree)."""
+        cfg = self.cfg
+        specs: dict[str, Any] = {
+            "embed": embed_spec(),
+            "final_norm": norm_spec(cfg.norm),
+        }
+        if not cfg.tie_embeddings:
+            specs["head"] = {"w": P(None, "model")}
+        specs["layers"] = [_stacked_spec(layer_spec_tree(cfg, spec), n)
+                           for spec, n in self.groups]
+        if cfg.is_encdec:
+            specs["enc_layers"] = [_stacked_spec(layer_spec_tree(cfg, spec), n)
+                                   for spec, n in self.encoder_groups]
+            specs["enc_norm"] = norm_spec(cfg.norm)
+        return specs
+
     # ------------- embedding / memory -------------
 
     def _embed(self, params, tokens, positions):
@@ -403,7 +486,8 @@ class LM:
         for lp in ([gp] if n == 1 else _layers(gp, n)):
             if remat:
                 x, a = checkpoint(body, lp, x, use_reentrant=False,
-                                  preserve_rng_state=False)
+                                  preserve_rng_state=False,
+                                  context_fn=recompute_context)
             else:
                 x, a = body(lp, x)
             if a is not None:
@@ -466,6 +550,11 @@ class LM:
                                one)
             caches.append(one)
         return caches
+
+    def cache_specs(self, shard_kv_heads: bool) -> list:
+        """The partition spec of every cache leaf (JAX's tree)."""
+        return [_stacked_spec(layer_cache_spec(self.cfg, spec, shard_kv_heads),
+                              n) for spec, n in self.groups]
 
     def _serve_groups(self, params, caches, x, layer_fn):
         """Run x through every decoder group with layer_fn(lp, spec, x, c)

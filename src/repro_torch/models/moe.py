@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import apply_mlp, init_mlp, make_dense
-from repro_torch.models.shardctx import constrain
+from repro_torch.models.layers import apply_mlp, init_mlp, make_dense, mlp_spec
+from repro_torch.models.shardctx import P, constrain
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -32,6 +32,16 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype):
     if cfg.num_shared_experts:
         p["shared"] = init_mlp(gen, dtype, d, f * cfg.num_shared_experts,
                                act="swiglu")
+    return p
+
+
+def moe_spec(cfg: ArchConfig):
+    p = {"router": P(None, None),
+         "wi": P("model", None, None),
+         "wg": P("model", None, None),
+         "wo": P("model", None, None)}
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_spec(act="swiglu")
     return p
 
 
@@ -80,8 +90,8 @@ def _combine(y, sel_t, top_i):
     g, e, c, d = y.shape
     t = top_i.shape[1]
     gi = torch.arange(g, device=y.device)[:, None, None]
-    slot = torch.full((g, e, t), c, dtype=torch.long, device=y.device)
-    slot.scatter_(-1, sel_t, torch.arange(c, device=y.device).expand_as(sel_t))
+    slot = sel_t.new_full((g, e, t), c).scatter(
+        -1, sel_t, torch.arange(c, device=y.device).expand_as(sel_t))
     at = slot[gi, top_i, torch.arange(t, device=y.device)[None, :, None]]
     kept = (at < c)[..., None].to(y.dtype)                  # (G, T, k, 1)
     return (y[gi, top_i, at.clamp(max=c - 1)] * kept).sum(dim=2)
@@ -117,8 +127,7 @@ def _moe_grouped(p, cfg: ArchConfig, xg, dropless: bool):
     e, k = cfg.num_experts, cfg.experts_per_tok
     xg = constrain(xg, "moe_tokens")
     probs, top_w, top_i = route(xg, p["router"], k)           # (G,Tg,k)
-    combine = torch.zeros(g, tg, e, dtype=torch.float32, device=xg.device)
-    combine.scatter_(-1, top_i, top_w)                        # (G,Tg,E)
+    combine = torch.zeros_like(probs).scatter(-1, top_i, top_w)  # (G,Tg,E)
 
     sel_w, sel_t = select(combine, capacity(cfg, tg, dropless))  # (G,E,C)
     valid = sel_w > 0
@@ -139,8 +148,7 @@ def _moe_block(p, cfg: ArchConfig, xf, dropless: bool):
     e, k = cfg.num_experts, cfg.experts_per_tok
     probs, top_w, top_i = route(xf, p["router"], k)           # (T, k)
     # (T, E) combine weights restricted to the top-k choices
-    combine = torch.zeros(t, e, dtype=torch.float32, device=xf.device)
-    combine.scatter_(-1, top_i, top_w)
+    combine = torch.zeros_like(probs).scatter(-1, top_i, top_w)
 
     sel_w, sel_t = select(combine, capacity(cfg, t, dropless))  # (E, C)
     valid = sel_w > 0

@@ -12,6 +12,7 @@ Port of the JAX package's ``models/rglru.py``; the gates and the state stay
 in f32 whatever the activations' dtype. The full-sequence path runs the
 recurrence as a log-depth (Hillis-Steele) scan over the length axis, where
 JAX uses ``lax.associative_scan``; decode is the single-step recurrence.
+``rglru_spec`` and ``rglru_cache_spec`` give JAX's partition specs.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import make_dense
+from repro_torch.models.shardctx import P
 
 _C = 8.0
 
@@ -41,6 +43,26 @@ def init_rglru(gen: torch.Generator, cfg: ArchConfig, dtype):
     }
 
 
+def rglru_spec(cfg: ArchConfig):
+    return {"in_gate": P(None, "model"), "in_rec": P(None, "model"),
+            "conv_w": P(None, "model"), "conv_b": P("model"),
+            "w_r": P(None, "model"), "w_i": P(None, "model"),
+            "lam": P("model"), "out": P("model", None)}
+
+
+def causal_conv(x, w):
+    """Depthwise causal conv1d over (B, L, C) with taps w (K, C), no bias:
+    y_t = sum_k w_k x_{t-K+1+k}, x zero before t = 0; the taps added in
+    order k = 0..K-1. (Zeros concatenated in front and a running sum, where
+    F.pad and sum() trip DTensor's rules in some torch releases.)"""
+    k, n = w.shape[0], x.shape[1]
+    pad = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
+    out = pad[:, :n] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i:i + n] * w[i]
+    return out
+
+
 def softplus(x):
     """log(1 + e^x) as ``jax.nn.softplus`` computes it (``logaddexp(x, 0)``;
     F.softplus linearises above its threshold)."""
@@ -48,10 +70,7 @@ def softplus(x):
 
 
 def _conv(p, x):
-    k = p["conv_w"].shape[0]
-    pad = F.pad(x, (0, 0, k - 1, 0))
-    return sum(pad[:, i:i + x.shape[1]] * p["conv_w"][i]
-               for i in range(k)) + p["conv_b"]
+    return causal_conv(x, p["conv_w"]) + p["conv_b"]
 
 
 def _gates(p, x):
@@ -95,6 +114,10 @@ def init_rglru_cache(cfg: ArchConfig, batch: int, dtype, device="cuda"):
     return {"state": torch.zeros(batch, w, dtype=torch.float32, device=dev),
             "conv": torch.zeros(batch, cfg.conv1d_width - 1, w, dtype=dtype,
                                 device=dev)}
+
+
+def rglru_cache_spec(cfg: ArchConfig):
+    return {"state": P("data", "model"), "conv": P("data", None, "model")}
 
 
 def rglru_decode(p, cfg: ArchConfig, u, cache):

@@ -6,7 +6,8 @@ Decode is the pure recurrent form with a (B, H, P, N) state and a conv
 ring buffer.
 
 Port of the JAX package's ``models/ssd.py``, with its casts: dt, the decay
-and the state are f32 whatever the activations' dtype.
+and the state are f32 whatever the activations' dtype; ``ssd_spec`` and
+``ssd_cache_spec`` give JAX's partition specs.
 
 Shapes: d_inner = expand·d_model, H = d_inner/headdim heads, P = headdim,
 N = ssm_state, G = ssm_groups (B/C shared across H/G heads per group).
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import make_dense
-from repro_torch.models.rglru import softplus
+from repro_torch.models.rglru import causal_conv, softplus
+from repro_torch.models.shardctx import P
 
 
 def init_ssd(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -43,6 +45,13 @@ def init_ssd(gen: torch.Generator, cfg: ArchConfig, dtype):
     }
 
 
+def ssd_spec(cfg: ArchConfig):
+    return {"in_proj": P(None, "model"), "conv_w": P(None, "model"),
+            "conv_b": P("model"), "a_log": P("model"), "dt_bias": P("model"),
+            "d_skip": P("model"), "out_proj": P("model", None),
+            "norm_scale": P("model")}
+
+
 def _split_proj(p, cfg: ArchConfig, u):
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads
     zxbcdt = u @ p["in_proj"]
@@ -54,10 +63,7 @@ def _split_proj(p, cfg: ArchConfig, u):
 
 def _causal_conv(p, xbc):
     """Depthwise causal conv1d, width K: y_t = sum_k w_k x_{t-K+1+k}."""
-    k = p["conv_w"].shape[0]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = sum(pad[:, i:i + xbc.shape[1]] * p["conv_w"][i] for i in range(k))
-    return F.silu(out + p["conv_b"])
+    return F.silu(causal_conv(xbc, p["conv_w"]) + p["conv_b"])
 
 
 def _gated_norm(p, y, z, eps=1e-6):
@@ -165,6 +171,11 @@ def init_ssd_cache(cfg: ArchConfig, batch: int, dtype, device="cuda"):
                                 dtype=dtype, device=dev)}
 
 
+def ssd_cache_spec(cfg: ArchConfig):
+    return {"state": P("data", "model", None, None),
+            "conv": P("data", None, "model")}
+
+
 def ssd_decode(p, cfg: ArchConfig, u, cache):
     """One token: u (B, 1, D) -> (B, 1, D); updates (state, conv ring)."""
     bsz = u.shape[0]
@@ -187,9 +198,12 @@ def ssd_decode(p, cfg: ArchConfig, u, cache):
     dt = softplus(dt[:, 0].to(f32) + p["dt_bias"])            # (B,H)
     a = torch.exp(dt * -torch.exp(p["a_log"]))                # decay
     xdt = x.to(f32) * dt[..., None]
+    # products and a sum over n, not einsum: a batched matmul would fold
+    # the head dim into its batch, which DTensor cannot do to a sharded dim
+    # in every torch release
     state = (cache["state"] * a[..., None, None]
-             + torch.einsum("bhp,bhn->bhpn", xdt, b_t.to(f32)))
-    y = torch.einsum("bhn,bhpn->bhp", c_t.to(f32), state)
+             + xdt[..., None] * b_t.to(f32)[:, :, None, :])
+    y = (c_t.to(f32)[:, :, None, :] * state).sum(-1)
     y = y + x.to(f32) * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, di).to(u.dtype)
     y = _gated_norm(p, y, z)

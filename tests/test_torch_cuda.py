@@ -663,3 +663,66 @@ def test_cuda_lm_loss_and_gradients_match_the_cpu(arch):
     for got, want in pairs:
         assert got.is_cuda
         assert float((got.cpu() - want).norm()) <= 1e-5 * float(want.norm())
+
+
+DRYRUN = """
+import json
+import repro_torch.launch.dryrun as dryrun
+from repro_torch.launch.dryrun_pipegcn import dryrun_pipegcn
+out = {"gcn": dryrun_pipegcn(True, device="cuda", steps=1),
+       "gcn_layer": dryrun_pipegcn(True, fuse=False, device="cuda", steps=1)}
+full = dryrun.get_arch    # the production mesh at reduced widths, in bf16
+dryrun.get_arch = lambda arch: full(arch).reduced(dtype="bfloat16")
+for dev in ("meta", "cuda"):
+    out["lm_" + dev] = dryrun.dryrun_one("qwen3-8b", "train_4k", device=dev,
+                                         steps=1)
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_card_mode():
+    """The dry-run's card mode, rank 0 of a fake process group (started in a
+    subprocess): PipeGCN at SMALL on the 2×16×16 mesh (512 partitions),
+    fused and per layer, with the expected boundary collectives and JAX's
+    wire bytes; a reduced qwen3-8b train_4k step on 16×16 with the argument
+    bytes and the collectives (count and bytes of each type) of its
+    abstract (meta) run, with its peak memory and step time measured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the dry-run's card mode")
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", DRYRUN], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    small = {"max_inner": 1_024, "slot": 256, "feat_dim": 602, "hidden": 256,
+             "num_layers": 4}
+    for key, want in (("gcn", 2), ("gcn_layer", 7)):
+        r = out[key]
+        assert r["sizes"]["max_inner"] == small["max_inner"]
+        assert r["boundary_collectives_per_step"] == want
+        assert r["boundary_collectives_expected"] == want
+        dims = [small["feat_dim"]] + [small["hidden"]] * 3
+        wire = 512 * small["slot"] * (sum(dims) + sum(dims[1:])) * 4
+        assert r["boundary_wire_bytes"] == r["recorded_wire_bytes"] == wire
+        assert r["peak_bytes"] >= r["argument_size_in_bytes"] > 0
+        assert r["step_ms"] > 0
+    meta, card = out["lm_meta"], out["lm_cuda"]
+    assert card["argument_size_in_bytes"] == meta["argument_size_in_bytes"]
+    # the card's step issues the collectives its abstract run counted, each
+    # of the same size; a tensor-parallel step gathers and reduces
+    for key in ("collective_counts_per_device", "collective_bytes_per_device"):
+        assert card[key] == meta[key], (key, card[key], meta[key])
+    counts = card["collective_counts_per_device"]
+    assert counts["all-gather"] > 0
+    assert counts["all-reduce"] + counts["reduce-scatter"] > 0
+    assert card["collective_total_bytes"] == sum(
+        card["collective_bytes_per_device"].values())
+    assert card["peak_bytes"] >= card["argument_size_in_bytes"]
+    assert card["step_ms"] > 0

@@ -324,9 +324,14 @@ def test_apply_moe_matches_jax(arch, groups, dropless):
 # ----------------------------------------------------------- (e) shardctx
 
 def test_sharding_rules_refuse_rules():
+    """Rules hold for the enclosed calls and are reset after, and a plain
+    tensor passes every rule unchanged (tests/test_torch_dryrun*.py run
+    them on DTensors)."""
     x = torch.ones(3)
     with shardctx.sharding_rules(None):
         assert shardctx.constrain(x, "residual") is x
-    with pytest.raises(NotImplementedError, match="item 12"):
-        with shardctx.sharding_rules({"residual": "data"}):
-            pass
+    rules = {"residual": shardctx.NamedSharding(None, shardctx.P("data"))}
+    with shardctx.sharding_rules(rules):
+        assert shardctx._RULES.get() is rules
+        assert shardctx.constrain(x, "residual") is x
+    assert shardctx._RULES.get() is None
