@@ -327,7 +327,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                collective table beside the abstract one and equal to it,
                count and bytes of every type;
              - granite-moe train_4k --opt-sharding, abstract;
-             - no port kernel launched in the phase.
+             - the 11 combos torch 2.11's DTensor refused before
+               shardctx routed the ops (deepseek-v2, granite-moe and
+               mamba2-780m train_4k and deepseek-v2 decode_32k on 16×16;
+               those and deepseek-v2 prefill_32k, granite-moe prefill_32k
+               and decode_32k on 2×16×16), abstract at full size through
+               the dry-run's CLI, one process each, 6 at once: each
+               combo's argument bytes, collective table and bottleneck,
+               none erring;
+             - granite-moe and mamba2-780m train_4k on 16×16 on the card
+               where the reckoned peak fits 75% of the card (granite-moe's
+               global routing holds (experts, capacity, d_model) dispatch
+               buffers whole on every rank, 75 GB reckoned: it runs with
+               --opt-sharding's grouped routing, through the same token
+               index route): median step ms of 2, peak bytes, the card's
+               collectives equal to the abstract run's, count and bytes of
+               every type;
+             - no port kernel launched in the phase; the phase's time.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -4208,18 +4224,42 @@ DRYRUN_STEPS = 2                   # timed card steps per LM shape
 DRYRUN_GCN_STEPS = 3
 DRYRUN_CARD_SHARE = 0.75           # reckoned peak / card memory to run it
 DRYRUN_MUST_RUN = ("train_4k", "decode_32k")
+# (arch, shape, multi_pod) of the combos torch 2.11's DTensor refused before
+# shardctx routed the ops (flip in the SSD's backward, MoE's index_put
+# backward, MLA's latent product in decode, MoE's index over a dim split on
+# two mesh axes); each runs abstract at full size in a process of its own
+DRYRUN_REFUSED = (
+    ("deepseek-v2-236b", "train_4k", False),
+    ("granite-moe-1b-a400m", "train_4k", False),
+    ("mamba2-780m", "train_4k", False),
+    ("deepseek-v2-236b", "decode_32k", False),
+    ("deepseek-v2-236b", "train_4k", True),
+    ("granite-moe-1b-a400m", "train_4k", True),
+    ("mamba2-780m", "train_4k", True),
+    ("deepseek-v2-236b", "decode_32k", True),
+    ("deepseek-v2-236b", "prefill_32k", True),
+    ("granite-moe-1b-a400m", "prefill_32k", True),
+    ("granite-moe-1b-a400m", "decode_32k", True),
+)
+DRYRUN_REFUSED_JOBS = 6            # processes at once
+DRYRUN_ROUTED_CARD = ("granite-moe-1b-a400m", "mamba2-780m")  # train_4k
 
 
-def _dryrun_reckon(cfg, shape, args_bytes: int, chips: int) -> float:
+def _dryrun_reckon(cfg, shape, args_bytes: int, chips: int,
+                   moe_groups: int = 1) -> float:
     """Rank 0's peak bytes reckoned from the spec layout (batch over
     'data', heads and vocab over 'model'), before running it on the card:
     train: the arguments twice (the functional Adam update keeps the old
     parameters and state beside the new), remat's saved layer inputs, the
     f32 logits three times (logits, log-softmax, gradient) and one layer's
-    f32 scores three times (scores, probs, gradient); prefill: the
-    arguments and one layer's f32 scores, masked scores and probs and the
-    cast probs; decode: the arguments and one layer's f32 scores over the
-    cache."""
+    f32 scores three times (scores, probs, gradient), and in an MoE arch
+    one layer's dispatch buffer of (experts, capacity, d_model) three
+    times (gathered tokens, expert outputs, gradient): whole on every rank
+    under global routing (DTensor gathers the tokens for the index), one
+    token group's under `moe_groups` groups (one per data shard); prefill:
+    the arguments and one layer's f32 scores, masked scores and probs and
+    the cast probs; decode: the arguments and one layer's f32 scores over
+    the cache."""
     data = chips // 16
     b = max(shape.global_batch // data, 1)
     h = max(cfg.num_heads // 16, 1)
@@ -4228,7 +4268,15 @@ def _dryrun_reckon(cfg, shape, args_bytes: int, chips: int) -> float:
     if shape.mode == "train":
         acts = cfg.num_layers * b * s * cfg.d_model * dt
         logits = 3 * b * s * (cfg.padded_vocab // 16) * 4
-        return 2 * args_bytes + acts + logits + 3 * b * h * s * s * 4
+        moe = 0
+        if cfg.num_experts:
+            tokens = shape.global_batch * s // moe_groups
+            cap = min(tokens, max(1, round(tokens * cfg.experts_per_tok
+                                           / cfg.num_experts
+                                           * cfg.capacity_factor)))
+            moe = 3 * cfg.num_experts * cap * cfg.d_model * dt
+        return (2 * args_bytes + acts + logits + 3 * b * h * s * s * 4
+                + moe)
     if shape.mode == "prefill":
         return args_bytes + b * h * s * s * (4 + 4 + 4 + dt)
     t = min(s, cfg.sliding_window) if cfg.sliding_window else s
@@ -4343,6 +4391,107 @@ def _dryrun_lm(card):
     return rows, moe
 
 
+def _dryrun_meta_cli(job):
+    """One combo through the dry-run's CLI, abstract, in its own process
+    (its own fake process group): (seconds, the CLI's row)."""
+    import tempfile
+    arch, shape, mp = job
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "row.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--device", "meta", "--out", out]
+            + (["--multi-pod"] if mp else []), capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [os.path.join(ROOT, "src"),
+                 os.environ.get("PYTHONPATH", "")])))
+        assert proc.returncode == 0, (job, proc.stderr[-3000:])
+        with open(out) as f:
+            (row,) = json.load(f)
+    return time.perf_counter() - t0, row
+
+
+def _dryrun_refused(card, opt_rows):
+    """The combos of DRYRUN_REFUSED at full size, abstract, none erring;
+    then DRYRUN_ROUTED_CARD's train_4k on 16×16 on the card (where the
+    reckoned peak fits, else under --opt-sharding, whose abstract rows
+    `opt_rows` gives by arch), its collectives equal to the abstract
+    run's."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.trace_utils import COLLECTIVE_OPS
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.models.config import INPUT_SHAPES
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(DRYRUN_REFUSED_JOBS) as pool:
+        done = list(pool.map(_dryrun_meta_cli, DRYRUN_REFUSED))
+    log(f"dryrun [{card}]: the {len(DRYRUN_REFUSED)} formerly refused combos, "
+        f"abstract, full size, {DRYRUN_REFUSED_JOBS} processes at once: "
+        f"{time.perf_counter() - t0:.1f} s (each "
+        f"{[round(s, 1) for s, _ in done]})")
+    rows = {}
+    for (arch, shape, mp), (secs, r) in zip(DRYRUN_REFUSED, done):
+        mesh = "2x16x16" if mp else "16x16"
+        assert "error" not in r, (arch, shape, mesh, r.get("error"))
+        assert r["argument_size_in_bytes"] > 0, r
+        assert r["collective_total_bytes"] == sum(
+            r["collective_bytes_per_device"].values()) > 0, r
+        rows[(arch, shape, mesh)] = r
+        log(f"dryrun [{card}]: {arch} {shape} {mesh} abstract (was refused) "
+            f"OK in {secs:.1f} s: arguments {r['argument_size_in_bytes']} B; "
+            f"collectives " + ", ".join(
+                f"{k} {r['collective_counts_per_device'][k]} / "
+                f"{r['collective_bytes_per_device'][k]} B"
+                for k in COLLECTIVE_OPS)
+            + f"; total {r['collective_total_bytes']} B; bottleneck "
+            f"{r['bottleneck']}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    shape = INPUT_SHAPES["train_4k"]
+    cards = {}
+    for arch in DRYRUN_ROUTED_CARD:
+        cfg = get_arch(arch)
+        meta = rows[(arch, "train_4k", "16x16")]
+        reckon = _dryrun_reckon(cfg, shape, meta["argument_size_in_bytes"],
+                                meta["chips"])
+        opt = reckon > DRYRUN_CARD_SHARE * total
+        if opt:
+            # global routing's dispatch buffers do not fit one card: the
+            # card runs the grouped routing of --opt-sharding, whose token
+            # index takes the same route
+            assert cfg.num_experts and arch in opt_rows, (arch, reckon)
+            log(f"dryrun [{card}]: {arch} train_4k 16x16: reckoned peak "
+                f"{reckon:.4g} B over {DRYRUN_CARD_SHARE:.0%} of the card "
+                f"under global routing; the card runs --opt-sharding")
+            meta = opt_rows[arch]
+            reckon = _dryrun_reckon(cfg, shape,
+                                    meta["argument_size_in_bytes"],
+                                    meta["chips"], moe_groups=meta["chips"]
+                                    // 16)
+            assert reckon <= DRYRUN_CARD_SHARE * total, (arch, reckon)
+        r = dryrun_one(arch, "train_4k", device="cuda", steps=DRYRUN_STEPS,
+                       opt_sharding=opt)
+        assert r["argument_size_in_bytes"] == meta["argument_size_in_bytes"]
+        assert r["peak_bytes"] >= r["argument_size_in_bytes"], r
+        assert math.isfinite(r["step_ms"]) and r["step_ms"] > 0, r
+        for key in ("collective_counts_per_device",
+                    "collective_bytes_per_device"):
+            assert r[key] == meta[key], (arch, key, r[key], meta[key])
+        cards[arch] = {k: r[k] for k in (
+            "step_ms", "step_ms_all", "peak_bytes", "argument_size_in_bytes",
+            "collective_counts_per_device", "collective_bytes_per_device")}
+        cards[arch].update(reckoned_peak_bytes=reckon, opt_sharding=opt)
+        log(f"dryrun [{card}]: {arch} train_4k 16x16"
+            f"{' --opt-sharding' if opt else ''} card (routed forms): "
+            f"step {r['step_ms']:.1f} ms (of {DRYRUN_STEPS}: "
+            f"{[round(t, 1) for t in r['step_ms_all']]}), peak "
+            f"{r['peak_bytes']} B (reckoned {reckon:.4g}) beside "
+            f"{r['argument_size_in_bytes']} B of arguments; collectives == "
+            f"abstract OK {r['collective_counts_per_device']}, "
+            f"{r['collective_total_bytes']} B")
+    return rows, cards
+
+
 def phase_dryrun():
     """The production dry-run on the card (see the module docstring, 7g)."""
     import torch
@@ -4352,6 +4501,7 @@ def phase_dryrun():
     reset_launches()
     gcn = _dryrun_gcn(card)
     lm, moe = _dryrun_lm(card)
+    refused, routed = _dryrun_refused(card, {moe["arch"]: moe})
     launches = read_launches()
     assert not any(launches.values()), launches
     log(f"dryrun [{card}]: no port kernel launched in the phase "
@@ -4370,7 +4520,10 @@ def phase_dryrun():
         pipegcn=gcn, lm=slim, moe={k: moe[k] for k in (
             "arch", "shape", "opt_sharding", "argument_size_in_bytes",
             "collective_counts_per_device", "collective_bytes_per_device",
-            "bottleneck")})))
+            "bottleneck")}, refused={" ".join(k): {f: r[f] for f in (
+                "argument_size_in_bytes", "collective_counts_per_device",
+                "collective_bytes_per_device", "bottleneck")}
+                for k, r in refused.items()}, routed_card=routed)))
     torch.cuda.empty_cache()
     log(f"dryrun: phase took {time.perf_counter() - t0:.1f} s")
 

@@ -26,9 +26,16 @@ rules would gather a shard whole or fail to the shard-wise forms below:
 the embedding lookup (``F.embedding``) and the loss's ``logsumexp`` and
 label ``gather`` on vocab-sharded tensors, the vocab projection (a matmul
 by a column-sharded weight), reshapes across unevenly sharded heads, and
-cache writes into a sharded length. The attention core is the one model
-function that knows of shards (`shard_local`): it runs on each rank's
-local shards, as a shard_map'ed attention would.
+cache writes into a sharded length. Three more forms take ops that torch
+2.11's DTensor refuses on the dry-run's path: MoE's indexing by token
+(`take`: an index split over several mesh axes, and the backward of an
+index that adds dims), the SSD's ``cumsum`` under autograd
+(`cumsum_local`: its backward flips the gradient, for which 2.11 has no
+rule), and a matmul or a two-operand einsum whose flatten of dims would
+cross a sharded dim (`local_einsum`: MLA's latent cache, sharded on its
+length, in decode). The attention core is the one model function that
+knows of shards (`shard_local`): it runs on each rank's local shards, as
+a shard_map'ed attention would.
 """
 from __future__ import annotations
 
@@ -348,6 +355,188 @@ def shard_local(fn):
     return run
 
 
+def _flatten_refused(x, groups) -> bool:
+    """Whether reshaping DTensor `x` with each group of its dims (in that
+    order) merged into one is a view (every group's strides merge) that
+    merges a sharded dim behind another of size > 1: some torch releases
+    refuse such a view rather than gather (a reshape they cannot view,
+    they copy, and gather)."""
+    refused = False
+    for dims in groups:
+        dims = [d for d in dims if x.shape[d] != 1]
+        if any(x.stride(a) != x.stride(b) * x.shape[b]
+               for a, b in zip(dims, dims[1:])):
+            return False
+        refused |= any(sharded_on(x, d) for d in dims[1:])
+    return refused
+
+
+def _einsum_groups(equation: str, shapes) -> list | None:
+    """For a two-operand einsum, each operand's dims in the groups that
+    torch's einsum flattens before its batched product (of the letters of
+    size > 1: those in both operands and the output, those in both and
+    summed, those of one operand in the output), each group in torch's
+    label order (the output's letters, then the summed ones sorted); None
+    for an equation outside that form (``...``, a repeated letter, a
+    letter broadcast from size 1)."""
+    ins, _, out = equation.replace(" ", "").partition("->")
+    ins = ins.split(",")
+    if (len(ins) != 2 or "." in equation or not out
+            or any(len(set(s)) != len(s) for s in ins)):
+        return None
+    order = list(out) + sorted(set("".join(ins)) - set(out))
+    size = [dict(zip(s, sh)) for s, sh in zip(ins, shapes)]
+    if any(size[0][c] != size[1][c] for c in set(ins[0]) & set(ins[1])):
+        return None
+    nontrivial = [{c for c, n in sz.items() if n != 1} for sz in size]
+    both = nontrivial[0] & nontrivial[1]
+    groups = [[c for c in order if c in both and c in out],
+              [c for c in order if c in both and c not in out],
+              [c for c in order if c in nontrivial[0] - both and c in out],
+              [c for c in order if c in nontrivial[1] - both and c in out]]
+    return [[[s.index(c) for c in g if c in s] for g in groups] for s in ins]
+
+
+def local_einsum(equation: str, *operands):
+    """``torch.einsum(equation, a, b)`` on each rank's shards, for DTensor
+    operands (plain ones count as replicated). On each mesh dim one letter
+    stays sharded, the one of the largest operand sharded there: the
+    operands that hold it are sharded on it and the others gathered whole,
+    and the product is sharded on it, or a partial sum where it is summed.
+    Where no operand is sharded on a mesh dim and one holds partial sums,
+    the product holds them (it is linear in each operand). Every other
+    sharding is gathered. DTensor's own einsum flattens groups of dims for
+    its batched product (and matmul its leading dims), which some torch
+    releases refuse across a sharded dim (MLA's latent cache, sharded on
+    its length, times an up-projection; a head-sharded query against it).
+    Differentiable in every operand."""
+    ins, _, out = equation.replace(" ", "").partition("->")
+    ins = ins.split(",")
+    mesh = next(o for o in operands if isinstance(o, DTensor)).device_mesh
+    ops = [_replicated(o, mesh) for o in operands]
+    pls, grads, out_pl = [[] for _ in ops], [[] for _ in ops], []
+    for i in range(mesh.ndim):
+        held = {}
+        for o, s in zip(ops, ins):
+            p = o.placements[i]
+            if isinstance(p, Shard):
+                held[s[p.dim]] = max(held.get(s[p.dim], 0), o.numel())
+        partial = [k for k, o in enumerate(ops)
+                   if isinstance(o.placements[i], Partial)]
+        if held:
+            c = max(held, key=held.get)
+            for k, s in enumerate(ins):
+                pl = Shard(s.index(c)) if c in s else Replicate()
+                pls[k].append(pl)
+                grads[k].append(pl if c in s else Partial())
+            out_pl.append(Shard(out.index(c)) if c in out else Partial())
+        elif len(partial) == 1:
+            for k, o in enumerate(ops):
+                pls[k].append(o.placements[i] if k in partial else Replicate())
+                grads[k].append(Replicate() if k in partial else Partial())
+            out_pl.append(ops[partial[0]].placements[i])
+        else:
+            for k in range(len(ops)):
+                pls[k].append(Replicate())
+                grads[k].append(Replicate())
+            out_pl.append(Replicate())
+    local = [o.redistribute(mesh, pl).to_local(grad_placements=g)
+             for o, pl, g in zip(ops, pls, grads)]
+    val = torch.einsum(equation, *local)
+    size = {c: n for s, o in zip(ins, ops) for c, n in zip(s, o.shape)}
+    return from_local(val, mesh, out_pl, tuple(size[c] for c in out))
+
+
+def cumsum_local(x, dim: int):
+    """``torch.cumsum(x, dim)`` for a DTensor `x` whole along `dim`, on each
+    rank's shard (partial sums stay partial: the sum is linear). Its
+    backward is autograd's on the local shard: the reversed cumulative sum
+    that some torch releases refuse on a DTensor (``flip`` has no sharding
+    rule there)."""
+    return from_local(torch.cumsum(x.to_local(), dim), x.device_mesh,
+                      x.placements, x.shape)
+
+
+def _split_dims(x) -> bool:
+    """Whether DTensor `x` splits one tensor dim over several mesh dims."""
+    dims = [p.dim for p in x.placements if isinstance(p, Shard)]
+    return len(dims) != len(set(dims))
+
+
+def _local_indices(indices, mesh, pl, shape) -> tuple:
+    """Index tensors (plain or DTensor) that broadcast to `shape`, each cut
+    to this rank's box of a tensor of `shape` laid out by `pl` (Shard
+    entries beyond `shape`'s dims ignored): sharded on dim b where it spans
+    b, whole where it broadcasts along it."""
+    n, out = len(shape), []
+    for idx in indices:
+        off = n - idx.ndim
+        ipl = [Shard(p.dim - off) if isinstance(p, Shard)
+               and off <= p.dim < n and idx.shape[p.dim - off] == shape[p.dim]
+               else Replicate() for p in pl]
+        out.append(_replicated(idx, mesh).redistribute(mesh, ipl).to_local())
+    return tuple(out)
+
+
+class _Take(torch.autograd.Function):
+    """``x[i0, ..., ik]`` (integer index tensors on x's leading dims) on each
+    rank's shard; see `take`."""
+
+    @staticmethod
+    def forward(ctx, x, *indices):
+        mesh, k = x.device_mesh, len(indices)
+        shape = torch.broadcast_shapes(*(i.shape for i in indices))
+        # the first index sharded on each mesh dim lays the output out
+        by_index = [next((Shard(p.dim + len(shape) - i.ndim) for i in indices
+                          if isinstance(i, DTensor)
+                          for p in (i.placements[d],) if isinstance(p, Shard)),
+                         None) for d in range(mesh.ndim)]
+        x_pl, out_pl = [], []
+        for xp, ip in zip(x.placements, by_index):
+            if ip is not None:
+                x_pl.append(Replicate())
+                out_pl.append(ip)
+            elif isinstance(xp, Shard) and xp.dim >= k:     # a kept dim
+                x_pl.append(xp)
+                out_pl.append(Shard(xp.dim - k + len(shape)))
+            elif isinstance(xp, Partial):
+                x_pl.append(xp)
+                out_pl.append(xp)
+            else:                               # an indexed dim: gathered
+                x_pl.append(Replicate())
+                out_pl.append(Replicate())
+        ctx.indices, ctx.x_shape, ctx.nb = indices, x.shape, len(shape)
+        xl = x.redistribute(mesh, x_pl).to_local()
+        val = xl[_local_indices(indices, mesh, out_pl, shape)]
+        return from_local(val, mesh, out_pl, tuple(shape) + x.shape[k:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, nb, k = grad.device_mesh, ctx.nb, len(ctx.indices)
+        # each rank adds its own slots of the gradient: a partial sum over
+        # the mesh dims that shard the slots
+        pl = [(Partial() if p.dim < nb else Shard(p.dim - nb + k))
+              if isinstance(p, Shard) else p for p in grad.placements]
+        size, _ = compute_local_shape_and_global_offset(ctx.x_shape, mesh, pl)
+        gl = grad.to_local()
+        idx = _local_indices(ctx.indices, mesh, grad.placements,
+                             grad.shape[:nb])
+        out = gl.new_zeros(size).index_put_(idx, gl, accumulate=True)
+        return (from_local(out, mesh, pl, ctx.x_shape),) + (None,) * k
+
+
+def take(x, *indices):
+    """``x[i0, ..., ik]`` for a DTensor `x` and integer index tensors (plain
+    or DTensor) on its leading dims, on each rank's shard: the output is
+    laid out as the indices are (x gathered whole on those mesh dims and on
+    its indexed dims; its other dims keep their sharding), and the
+    gradient is each rank's slots added into x's shape, a partial sum where
+    the slots are sharded. DTensor's own index refuses, in some torch
+    releases, an index that splits one dim over several mesh dims, and a
+    backward (``index_put``) whose values have more dims than x."""
+    return _Take.apply(x, *indices)
+
+
 def write_rows(dst, key, src) -> bool:
     """dst[:, a:b] = src, in place, for a DTensor `dst` sharded on dim 1 (a
     cache sharded on its length): `src` is laid out as `dst` with dim 1
@@ -388,6 +577,41 @@ def _route(func, args, kwargs, vocab):
                 and w.ndim == 2 and w.shape[1] == vocab
                 and sharded_on(w, 1)):
             return column_parallel(x, w)
+        if (isinstance(x, DTensor) and x.ndim >= 3 and w.ndim == 2
+                and _flatten_refused(x, [range(x.ndim - 1)])):
+            # x's leading dims, flattened by matmul: a product on shards
+            lead = "abcdefgh"[:x.ndim - 1]
+            return local_einsum(f"{lead}y,yz->{lead}z", x, w)
+    elif func is torch.einsum:
+        eq, ops = args[0], args[1:]
+        if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+            ops = tuple(ops[0])
+        groups = (_einsum_groups(eq, [o.shape for o in ops])
+                  if isinstance(eq, str) and len(ops) == 2 and not kwargs
+                  and any(isinstance(o, DTensor) for o in ops) else None)
+        if groups and any(isinstance(o, DTensor) and _flatten_refused(o, gs)
+                          for o, gs in zip(ops, groups)):
+            return local_einsum(eq, *ops)
+    elif func in (torch.cumsum, torch.Tensor.cumsum):
+        x = args[0]
+        dim = args[1] if len(args) > 1 else kwargs.get("dim")
+        if (isinstance(x, DTensor) and isinstance(dim, int)
+                and set(kwargs) <= {"dim"} and len(args) <= 2
+                and torch.is_grad_enabled() and x.requires_grad
+                and not sharded_on(x, dim)):
+            return cumsum_local(x, dim % x.ndim)
+    elif func is torch.Tensor.__getitem__:
+        x, key = args
+        key = key if isinstance(key, tuple) else (key,)
+        ints = all(isinstance(i, torch.Tensor) and i.dtype != torch.bool
+                   and not i.dtype.is_floating_point for i in key)
+        # DTensor's own index serves elsewhere: its backward where x takes
+        # no gradient, its forward where no index splits a dim
+        if (isinstance(x, DTensor) and key and ints
+                and ((torch.is_grad_enabled() and x.requires_grad)
+                     or any(isinstance(i, DTensor) and _split_dims(i)
+                            for i in key))):
+            return take(x, *key)
     elif func is F.embedding:
         idx, table = args[:2]
         if (isinstance(table, DTensor) and len(args) == 2

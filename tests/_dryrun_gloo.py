@@ -33,6 +33,15 @@ WORLD = 4
 FLOOR = 1e-2
 ARCHS = ("qwen3-8b", "granite-moe-1b-a400m", "mamba2-780m",
          "whisper-large-v3")
+# MLA and MoE in one layer: its decode multiplies the length-sharded latent
+# cache by the up-projections (shardctx.local_einsum)
+ARCHS_F64 = ARCHS + ("deepseek-v2-236b",)
+OVERRIDES = {
+    # 1 kv head: fewer kv heads than 'model' shards, as its 8 kv heads on
+    # the production 16-way axis
+    "qwen3-8b": {"num_kv_heads": 1},
+    "deepseek-v2-236b": {"num_layers": 1, "first_dense_layers": 0},
+}
 QUANTITIES = ("loss", "grads", "adam", "decode", "caches")
 
 
@@ -108,11 +117,8 @@ def worker(rank: int, init: str, out: str, archs, seeds, casts: str):
                    for path, x, y in pairs)
 
     def one(arch: str, seed: int) -> dict:
-        # qwen3-8b with 1 kv head: fewer kv heads than 'model' shards, as
-        # its 8 kv heads on the production 16-way axis
-        cfg = get_arch(arch).reduced(
-            dtype="float64", **({"num_kv_heads": 1} if arch == "qwen3-8b"
-                                else {}))
+        cfg = get_arch(arch).reduced(dtype="float64",
+                                     **OVERRIDES.get(arch, {}))
         lm = LM(cfg)
         gen = torch.Generator().manual_seed(seed)
         params = lm.init_params(gen)
@@ -177,7 +183,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", default="0")
     ap.add_argument("--casts", choices=("keep", "lift"), default="lift")
-    ap.add_argument("--archs", default=",".join(ARCHS))
+    ap.add_argument("--archs", default=",".join(ARCHS_F64))
     args = ap.parse_args(argv)
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:

@@ -726,3 +726,79 @@ def test_cuda_dryrun_card_mode():
         card["collective_bytes_per_device"].values())
     assert card["peak_bytes"] >= card["argument_size_in_bytes"]
     assert card["step_ms"] > 0
+
+
+# The combos torch 2.11's DTensor refused before shardctx routed the ops
+# (tests/test_torch_dryrun_routes.py lists the refused pairs)
+REFUSED_COMBOS = (
+    "deepseek-v2-236b:train_4k:16x16", "granite-moe-1b-a400m:train_4k:16x16",
+    "mamba2-780m:train_4k:16x16", "deepseek-v2-236b:decode_32k:16x16",
+    "deepseek-v2-236b:train_4k:2x16x16",
+    "granite-moe-1b-a400m:train_4k:2x16x16", "mamba2-780m:train_4k:2x16x16",
+    "deepseek-v2-236b:decode_32k:2x16x16",
+    "deepseek-v2-236b:prefill_32k:2x16x16",
+    "granite-moe-1b-a400m:prefill_32k:2x16x16",
+    "granite-moe-1b-a400m:decode_32k:2x16x16",
+)
+
+
+def _dryrun_routes(combos, timeout=900) -> dict:
+    import json
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, "..", "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, os.path.join(
+        here, "_dryrun_routes.py"), *combos], capture_output=True, text=True,
+        env=env, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])["rows"]
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_refused_combos_run():
+    """The 11 dry-run combos that torch 2.11's DTensor refused (4 on 16×16,
+    7 on 2×16×16) at reduced widths, abstract (meta), each rank 0 of a fake
+    process group in a subprocess (4 side by side): every combo gives a row
+    with no error, its argument bytes and collective table. Run on the card
+    machine's torch, this is where a release whose DTensor refuses a new op
+    on the dry-run's path shows first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card machine's torch: the refusals were its")
+    from concurrent.futures import ThreadPoolExecutor
+    groups = [REFUSED_COMBOS[i::4] for i in range(4)]
+    with ThreadPoolExecutor(4) as ex:
+        rows = {k: v for out in ex.map(_dryrun_routes, groups)
+                for k, v in out.items()}
+    assert sorted(rows) == sorted(REFUSED_COMBOS)
+    errs = {k: v["error"][:400] for k, v in rows.items() if "error" in v}
+    assert not errs, errs
+    for combo, r in rows.items():
+        assert r["argument_size_in_bytes"] > 0, combo
+        assert r["collective_total_bytes"] == sum(
+            r["collective_bytes_per_device"].values()) > 0, combo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m"])
+def test_cuda_dryrun_card_mode_routed(arch):
+    """A reduced train_4k step on 16×16 that runs the routed forms (MoE's
+    index and its backward; the SSD's cumsum and its backward) as rank 0
+    on the card: the argument bytes and the collectives (count and bytes
+    of each type) of its abstract (meta) run, with its peak memory and
+    step time measured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the dry-run's card mode")
+    rows = _dryrun_routes([f"{arch}:train_4k:16x16:meta",
+                           f"{arch}:train_4k:16x16:cuda"])
+    meta, card = rows[f"{arch}:train_4k:16x16:meta"], \
+        rows[f"{arch}:train_4k:16x16:cuda"]
+    assert "error" not in meta and "error" not in card, (meta, card)
+    assert card["argument_size_in_bytes"] == meta["argument_size_in_bytes"]
+    for key in ("collective_counts_per_device", "collective_bytes_per_device"):
+        assert card[key] == meta[key], (key, card[key], meta[key])
+    assert card["collective_counts_per_device"]["all-gather"] > 0
+    assert card["peak_bytes"] >= card["argument_size_in_bytes"]
+    assert card["step_ms"] > 0
