@@ -319,30 +319,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the bytes handed to the exchange equal to JAX's wire-byte
                formula;
              - qwen3-8b on 16×16, all four shapes abstract (meta): argument
-               bytes, the collective table (count and bytes per type),
-               roofline terms; then on the card every shape whose reckoned
-               peak (_dryrun_reckon) fits 75% of the card, train_4k and
-               decode_32k at least: median step ms of 2, peak bytes beside
-               the argument bytes (equal to the abstract run's), the card's
-               collective table beside the abstract one and equal to it,
-               count and bytes of every type;
+               bytes, bytes per device (StepMemory: arguments + the peak
+               of the step's own storages), the collective table (count
+               and bytes per type), roofline terms; then on the card every
+               shape whose abstract bytes per device fit 75% of the card,
+               train_4k and decode_32k at least: median step ms of 2, peak
+               bytes beside the argument bytes (equal to the abstract
+               run's) and the abstract bytes per device within 15% of it,
+               the card's collective table beside the abstract one and
+               equal to it, count and bytes of every type;
              - granite-moe train_4k --opt-sharding, abstract;
-             - the 11 combos torch 2.11's DTensor refused before
-               shardctx routed the ops (deepseek-v2, granite-moe and
-               mamba2-780m train_4k and deepseek-v2 decode_32k on 16×16;
-               those and deepseek-v2 prefill_32k, granite-moe prefill_32k
-               and decode_32k on 2×16×16), abstract at full size through
-               the dry-run's CLI, one process each, 6 at once: each
-               combo's argument bytes, collective table and bottleneck,
-               none erring;
              - granite-moe and mamba2-780m train_4k on 16×16 on the card
-               where the reckoned peak fits 75% of the card (granite-moe's
-               global routing holds (experts, capacity, d_model) dispatch
-               buffers whole on every rank, 75 GB reckoned: it runs with
-               --opt-sharding's grouped routing, through the same token
-               index route): median step ms of 2, peak bytes, the card's
+               under global routing, whose abstract bytes per device must
+               fit 75% of the card: median step ms of 2, peak bytes and
+               the abstract bytes per device within 15% of it, the card's
                collectives equal to the abstract run's, count and bytes of
                every type;
+             - after the timed card steps (so no step time is taken beside
+               them), the dry-run's CLI, --all --shape S --device meta, one
+               process per mesh and shape, all eight side by side: with
+               the PipeGCN rows above, 40 of 40 LM rows per mesh under
+               JAX's artifact gates (launch.dryrun.check_rows: no error,
+               run_s > 0, t_compute >= 0, t_memory > 0, a bottleneck,
+               train model-FLOPs ratio in (0.2, 1.3), no compute-bound
+               decode, PipeGCN's all-to-all bytes > 0); against JAX's rows
+               (tests/_dryrun_jax_rows.py, check_against_jax): every row's
+               collectives counted and their total the sum of the types,
+               its argument bytes JAX's or the int32 scalar fewer, an MoE
+               row at least one all-reduce of its (tokens, d_model) output
+               per MoE layer, the seven rows of ROADMAP F5 at most 4x
+               JAX's collective bytes; each row's collective bytes beside
+               JAX's; bytes per device; these rows include the 11 combos
+               torch 2.11's DTensor refused before shardctx routed the ops;
              - no port kernel launched in the phase; the phase's time.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
@@ -4222,65 +4230,19 @@ DRYRUN_LM_ARCH = "qwen3-8b"
 DRYRUN_MOE_ARCH = "granite-moe-1b-a400m"
 DRYRUN_STEPS = 2                   # timed card steps per LM shape
 DRYRUN_GCN_STEPS = 3
-DRYRUN_CARD_SHARE = 0.75           # reckoned peak / card memory to run it
+DRYRUN_CARD_SHARE = 0.75           # meta bytes per device / card memory
 DRYRUN_MUST_RUN = ("train_4k", "decode_32k")
-# (arch, shape, multi_pod) of the combos torch 2.11's DTensor refused before
-# shardctx routed the ops (flip in the SSD's backward, MoE's index_put
-# backward, MLA's latent product in decode, MoE's index over a dim split on
-# two mesh axes); each runs abstract at full size in a process of its own
-DRYRUN_REFUSED = (
-    ("deepseek-v2-236b", "train_4k", False),
-    ("granite-moe-1b-a400m", "train_4k", False),
-    ("mamba2-780m", "train_4k", False),
-    ("deepseek-v2-236b", "decode_32k", False),
-    ("deepseek-v2-236b", "train_4k", True),
-    ("granite-moe-1b-a400m", "train_4k", True),
-    ("mamba2-780m", "train_4k", True),
-    ("deepseek-v2-236b", "decode_32k", True),
-    ("deepseek-v2-236b", "prefill_32k", True),
-    ("granite-moe-1b-a400m", "prefill_32k", True),
-    ("granite-moe-1b-a400m", "decode_32k", True),
-)
-DRYRUN_REFUSED_JOBS = 6            # processes at once
 DRYRUN_ROUTED_CARD = ("granite-moe-1b-a400m", "mamba2-780m")  # train_4k
+DRYRUN_BYTES_TOL = 0.15            # meta bytes per device vs card peak
+DRYRUN_MESHES = {"16x16": 256, "2x16x16": 512}     # mesh: chips
 
 
-def _dryrun_reckon(cfg, shape, args_bytes: int, chips: int,
-                   moe_groups: int = 1) -> float:
-    """Rank 0's peak bytes reckoned from the spec layout (batch over
-    'data', heads and vocab over 'model'), before running it on the card:
-    train: the arguments twice (the functional Adam update keeps the old
-    parameters and state beside the new), remat's saved layer inputs, the
-    f32 logits three times (logits, log-softmax, gradient) and one layer's
-    f32 scores three times (scores, probs, gradient), and in an MoE arch
-    one layer's dispatch buffer of (experts, capacity, d_model) three
-    times (gathered tokens, expert outputs, gradient): whole on every rank
-    under global routing (DTensor gathers the tokens for the index), one
-    token group's under `moe_groups` groups (one per data shard); prefill:
-    the arguments and one layer's f32 scores, masked scores and probs and
-    the cast probs; decode: the arguments and one layer's f32 scores over
-    the cache."""
-    data = chips // 16
-    b = max(shape.global_batch // data, 1)
-    h = max(cfg.num_heads // 16, 1)
-    dt = 2 if cfg.dtype == "bfloat16" else 4
-    s = shape.seq_len
-    if shape.mode == "train":
-        acts = cfg.num_layers * b * s * cfg.d_model * dt
-        logits = 3 * b * s * (cfg.padded_vocab // 16) * 4
-        moe = 0
-        if cfg.num_experts:
-            tokens = shape.global_batch * s // moe_groups
-            cap = min(tokens, max(1, round(tokens * cfg.experts_per_tok
-                                           / cfg.num_experts
-                                           * cfg.capacity_factor)))
-            moe = 3 * cfg.num_experts * cap * cfg.d_model * dt
-        return (2 * args_bytes + acts + logits + 3 * b * h * s * s * 4
-                + moe)
-    if shape.mode == "prefill":
-        return args_bytes + b * h * s * s * (4 + 4 + 4 + dt)
-    t = min(s, cfg.sliding_window) if cfg.sliding_window else s
-    return args_bytes + b * cfg.num_heads * t * 4
+def _jax_rows():
+    """JAX's dry-run rows as data, with the checks that hold the port's rows
+    to them (tests/_dryrun_jax_rows.py)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _dryrun_jax_rows
+    return _dryrun_jax_rows
 
 
 def _dryrun_gcn(card):
@@ -4321,26 +4283,36 @@ def _dryrun_gcn(card):
     return rows
 
 
+def _dryrun_bytes(card, tag, meta, r):
+    """Log and hold the abstract run's bytes per device (arguments + the
+    peak of the step's own storages, `StepMemory`) against the card's
+    allocator peak of the same combo."""
+    ratio = meta["bytes_per_device"] / r["peak_bytes"]
+    log(f"dryrun [{card}]: {tag}: meta bytes per device "
+        f"{meta['bytes_per_device']} B (arguments "
+        f"{meta['argument_size_in_bytes']}, temporaries "
+        f"{meta['temp_size_in_bytes']}) beside the card's peak "
+        f"{r['peak_bytes']} B: {ratio:.4f}")
+    assert abs(ratio - 1) <= DRYRUN_BYTES_TOL, (tag, ratio)
+    return ratio
+
+
 def _dryrun_lm(card):
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.launch.dryrun import dryrun_one, variant_for
+    from repro_torch.launch.dryrun import dryrun_one
     from repro_torch.models.config import INPUT_SHAPES
     total = torch.cuda.get_device_properties(0).total_memory
     rows = {}
-    for name, shape in INPUT_SHAPES.items():
+    for name in INPUT_SHAPES:
         meta = dryrun_one(DRYRUN_LM_ARCH, name, device="meta")
-        cfg = variant_for(get_arch(DRYRUN_LM_ARCH), name)[0]
-        reckon = _dryrun_reckon(cfg, shape, meta["argument_size_in_bytes"],
-                                meta["chips"])
-        fits = reckon <= DRYRUN_CARD_SHARE * total
-        assert fits or name not in DRYRUN_MUST_RUN, (name, reckon)
-        row = {"meta": meta, "reckoned_peak_bytes": reckon,
-               "card_bytes": total}
+        fits = meta["bytes_per_device"] <= DRYRUN_CARD_SHARE * total
+        assert fits or name not in DRYRUN_MUST_RUN, (name, meta)
+        row = {"meta": meta, "card_bytes": total}
         log(f"dryrun [{card}]: {DRYRUN_LM_ARCH} {name} 16x16 abstract: "
-            f"arguments {meta['argument_size_in_bytes']} B, reckoned peak "
-            f"{reckon:.4g} B of {total} ({'runs' if fits else 'skipped'} on "
-            f"the card); collectives {meta['collective_counts_per_device']}, "
+            f"arguments {meta['argument_size_in_bytes']} B, bytes per device "
+            f"{meta['bytes_per_device']} of {total} ("
+            f"{'runs' if fits else 'skipped'} on the card); collectives "
+            f"{meta['collective_counts_per_device']}, "
             f"{meta['collective_total_bytes']} B; bottleneck "
             f"{meta['bottleneck']}")
         if fits:
@@ -4357,6 +4329,8 @@ def _dryrun_lm(card):
                 assert r[key] == meta[key], (key, r[key], meta[key])
             assert r["collective_counts_per_device"]["all-gather"] > 0, r
             row["card"] = r
+            row["meta_over_peak"] = _dryrun_bytes(
+                card, f"{DRYRUN_LM_ARCH} {name} 16x16", meta, r)
             log(f"dryrun [{card}]: {DRYRUN_LM_ARCH} {name} 16x16 card: step "
                 f"{r['step_ms']:.1f} ms (of {DRYRUN_STEPS}: "
                 f"{[round(t, 1) for t in r['step_ms_all']]}), peak "
@@ -4383,7 +4357,8 @@ def _dryrun_lm(card):
                      opt_sharding=True)
     assert sum(moe["collective_counts_per_device"].values()) > 0, moe
     log(f"dryrun [{card}]: {DRYRUN_MOE_ARCH} train_4k 16x16 --opt-sharding "
-        f"abstract: arguments {moe['argument_size_in_bytes']} B, collectives "
+        f"abstract: arguments {moe['argument_size_in_bytes']} B, bytes per "
+        f"device {moe['bytes_per_device']}, collectives "
         f"{moe['collective_counts_per_device']}, "
         f"{moe['collective_total_bytes']} B; bottleneck {moe['bottleneck']}")
     assert all(name in rows and "card" in rows[name]
@@ -4391,109 +4366,111 @@ def _dryrun_lm(card):
     return rows, moe
 
 
-def _dryrun_meta_cli(job):
-    """One combo through the dry-run's CLI, abstract, in its own process
-    (its own fake process group): (seconds, the CLI's row)."""
-    import tempfile
-    arch, shape, mp = job
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "row.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--device", "meta", "--out", out]
-            + (["--multi-pod"] if mp else []), capture_output=True, text=True,
-            timeout=900, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
-                [os.path.join(ROOT, "src"),
-                 os.environ.get("PYTHONPATH", "")])))
-        assert proc.returncode == 0, (job, proc.stderr[-3000:])
-        with open(out) as f:
-            (row,) = json.load(f)
-    return time.perf_counter() - t0, row
-
-
-def _dryrun_refused(card, opt_rows):
-    """The combos of DRYRUN_REFUSED at full size, abstract, none erring;
-    then DRYRUN_ROUTED_CARD's train_4k on 16×16 on the card (where the
-    reckoned peak fits, else under --opt-sharding, whose abstract rows
-    `opt_rows` gives by arch), its collectives equal to the abstract
-    run's."""
-    import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.core.trace_utils import COLLECTIVE_OPS
-    from repro_torch.launch.dryrun import dryrun_one
+def _dryrun_sweeps(out_dir):
+    """The dry-run's CLI, ``--all --shape S --device meta``, one process per
+    mesh and shape, started side by side: {(mesh, shape): (process, its
+    rows' file)}."""
     from repro_torch.models.config import INPUT_SHAPES
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    procs = {}
+    for mesh in DRYRUN_MESHES:
+        for shape in INPUT_SHAPES:
+            out = os.path.join(out_dir, f"dryrun_{mesh}_{shape}.json")
+            with open(out + ".log", "w") as logf:
+                procs[mesh, shape] = (subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--all", "--shape", shape, "--device", "meta", "--out",
+                     out] + (["--multi-pod"] if mesh == "2x16x16" else []),
+                    stdout=logf, stderr=subprocess.STDOUT, env=env), out)
+    return procs
+
+
+def _dryrun_sweep_rows(card, procs, gcn):
+    """The sweeps' rows of each mesh, with the PipeGCN rows `gcn` of that
+    mesh, held to JAX's artifact gates (`check_rows`: 40 of 40 LM rows,
+    none with an error) and to JAX's rows (`check_against_jax`), the MoE
+    rows' collective bytes logged beside JAX's."""
+    from repro_torch.launch.dryrun import check_rows
+    jax = _jax_rows()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(DRYRUN_REFUSED_JOBS) as pool:
-        done = list(pool.map(_dryrun_meta_cli, DRYRUN_REFUSED))
-    log(f"dryrun [{card}]: the {len(DRYRUN_REFUSED)} formerly refused combos, "
-        f"abstract, full size, {DRYRUN_REFUSED_JOBS} processes at once: "
-        f"{time.perf_counter() - t0:.1f} s (each "
-        f"{[round(s, 1) for s, _ in done]})")
-    rows = {}
-    for (arch, shape, mp), (secs, r) in zip(DRYRUN_REFUSED, done):
-        mesh = "2x16x16" if mp else "16x16"
-        assert "error" not in r, (arch, shape, mesh, r.get("error"))
-        assert r["argument_size_in_bytes"] > 0, r
-        assert r["collective_total_bytes"] == sum(
-            r["collective_bytes_per_device"].values()) > 0, r
-        rows[(arch, shape, mesh)] = r
-        log(f"dryrun [{card}]: {arch} {shape} {mesh} abstract (was refused) "
-            f"OK in {secs:.1f} s: arguments {r['argument_size_in_bytes']} B; "
-            f"collectives " + ", ".join(
-                f"{k} {r['collective_counts_per_device'][k]} / "
-                f"{r['collective_bytes_per_device'][k]} B"
-                for k in COLLECTIVE_OPS)
-            + f"; total {r['collective_total_bytes']} B; bottleneck "
-            f"{r['bottleneck']}")
+    rows = {mesh: [] for mesh in DRYRUN_MESHES}
+    for (mesh, shape), (proc, out) in procs.items():
+        proc.wait(timeout=900)
+        with open(out + ".log") as f:
+            assert proc.returncode == 0, (mesh, shape, f.read()[-3000:])
+        with open(out) as f:
+            rows[mesh] += json.load(f)
+    secs = time.perf_counter() - t0
+    for mesh, got in rows.items():
+        chips = DRYRUN_MESHES[mesh]
+        pipegcn = [r for r in gcn if r["chips"] == chips]
+        assert pipegcn, mesh
+        check_rows(got + pipegcn, chips)
+        versus = jax.check_against_jax(got, mesh)
+        log(f"dryrun [{card}]: --all --device meta {mesh}: {len(got)} rows, "
+            f"none with an error, JAX's artifact gates OK (with "
+            f"{len(pipegcn)} PipeGCN rows), JAX's rows OK, "
+            f"{sum(r['run_s'] for r in got):.1f} s of steps")
+        for r in got:
+            key = (r["arch"], r["shape"])
+            d, ratio = versus[key]
+            f5 = key + (mesh,) in jax.F5
+            moe = jax.moe_output_reduction(*key, mesh)[0] > 0
+            log(f"  {mesh:<8} {r['arch']:<22} {r['shape']:<12} arguments "
+                f"{r['argument_size_in_bytes']:>13} (JAX - port {d}, "
+                f"{r['unused_argument_leaves']} unread) bytes/device "
+                f"{r['bytes_per_device']:>15} collectives "
+                f"{r['collective_total_bytes']:>16} (JAX "
+                f"{jax.COLLECTIVE_BYTES[mesh][key]:>16}, {ratio:.3f}x"
+                f"{f', F5 bar {jax.FACTOR}x OK' if f5 else ''}"
+                f"{'; MoE: all-reduce floor OK' if moe else ''})")
+    log(f"dryrun [{card}]: the {len(procs)} sweep processes: {secs:.1f} s "
+        f"after the card work")
+    return rows
+
+
+def _dryrun_routed(card):
+    """DRYRUN_ROUTED_CARD's train_4k on 16×16 on the card under global
+    routing, whose abstract bytes per device must fit DRYRUN_CARD_SHARE of
+    the card: its collectives equal to the abstract run's, its meta bytes
+    within DRYRUN_BYTES_TOL of the card's peak."""
+    import torch
+    from repro_torch.launch.dryrun import dryrun_one
     total = torch.cuda.get_device_properties(0).total_memory
-    shape = INPUT_SHAPES["train_4k"]
     cards = {}
     for arch in DRYRUN_ROUTED_CARD:
-        cfg = get_arch(arch)
-        meta = rows[(arch, "train_4k", "16x16")]
-        reckon = _dryrun_reckon(cfg, shape, meta["argument_size_in_bytes"],
-                                meta["chips"])
-        opt = reckon > DRYRUN_CARD_SHARE * total
-        if opt:
-            # global routing's dispatch buffers do not fit one card: the
-            # card runs the grouped routing of --opt-sharding, whose token
-            # index takes the same route
-            assert cfg.num_experts and arch in opt_rows, (arch, reckon)
-            log(f"dryrun [{card}]: {arch} train_4k 16x16: reckoned peak "
-                f"{reckon:.4g} B over {DRYRUN_CARD_SHARE:.0%} of the card "
-                f"under global routing; the card runs --opt-sharding")
-            meta = opt_rows[arch]
-            reckon = _dryrun_reckon(cfg, shape,
-                                    meta["argument_size_in_bytes"],
-                                    meta["chips"], moe_groups=meta["chips"]
-                                    // 16)
-            assert reckon <= DRYRUN_CARD_SHARE * total, (arch, reckon)
-        r = dryrun_one(arch, "train_4k", device="cuda", steps=DRYRUN_STEPS,
-                       opt_sharding=opt)
+        meta = dryrun_one(arch, "train_4k", device="meta")
+        assert meta["bytes_per_device"] <= DRYRUN_CARD_SHARE * total, (
+            arch, meta["bytes_per_device"], total)
+        r = dryrun_one(arch, "train_4k", device="cuda", steps=DRYRUN_STEPS)
         assert r["argument_size_in_bytes"] == meta["argument_size_in_bytes"]
         assert r["peak_bytes"] >= r["argument_size_in_bytes"], r
         assert math.isfinite(r["step_ms"]) and r["step_ms"] > 0, r
         for key in ("collective_counts_per_device",
                     "collective_bytes_per_device"):
             assert r[key] == meta[key], (arch, key, r[key], meta[key])
+        tag = f"{arch} train_4k 16x16"
         cards[arch] = {k: r[k] for k in (
             "step_ms", "step_ms_all", "peak_bytes", "argument_size_in_bytes",
             "collective_counts_per_device", "collective_bytes_per_device")}
-        cards[arch].update(reckoned_peak_bytes=reckon, opt_sharding=opt)
-        log(f"dryrun [{card}]: {arch} train_4k 16x16"
-            f"{' --opt-sharding' if opt else ''} card (routed forms): "
+        cards[arch].update(
+            meta_bytes_per_device=meta["bytes_per_device"],
+            meta_over_peak=_dryrun_bytes(card, tag, meta, r))
+        log(f"dryrun [{card}]: {tag} card (routed forms): "
             f"step {r['step_ms']:.1f} ms (of {DRYRUN_STEPS}: "
             f"{[round(t, 1) for t in r['step_ms_all']]}), peak "
-            f"{r['peak_bytes']} B (reckoned {reckon:.4g}) beside "
-            f"{r['argument_size_in_bytes']} B of arguments; collectives == "
-            f"abstract OK {r['collective_counts_per_device']}, "
+            f"{r['peak_bytes']} B beside {r['argument_size_in_bytes']} B of "
+            f"arguments; collectives == abstract OK "
+            f"{r['collective_counts_per_device']}, "
             f"{r['collective_total_bytes']} B")
-    return rows, cards
+    return cards
 
 
 def phase_dryrun():
     """The production dry-run on the card (see the module docstring, 7g)."""
+    import tempfile
+
     import torch
     t0 = time.perf_counter()
     card = nvidia_smi_line()
@@ -4501,16 +4478,22 @@ def phase_dryrun():
     reset_launches()
     gcn = _dryrun_gcn(card)
     lm, moe = _dryrun_lm(card)
-    refused, routed = _dryrun_refused(card, {moe["arch"]: moe})
+    routed = _dryrun_routed(card)
     launches = read_launches()
+    log(f"dryrun: the card work took {time.perf_counter() - t0:.1f} s")
+    # the abstract sweeps only now, so no card step above was timed beside
+    # them
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep = _dryrun_sweep_rows(card, _dryrun_sweeps(tmp), gcn)
     assert not any(launches.values()), launches
     log(f"dryrun [{card}]: no port kernel launched in the phase "
         f"({launches}) OK")
     slim = {name: {"meta": {k: row["meta"][k] for k in (
-        "argument_size_in_bytes", "collective_counts_per_device",
-        "collective_bytes_per_device", "flops_per_device", "t_compute",
-        "t_memory", "t_collective", "bottleneck")},
-        "reckoned_peak_bytes": row["reckoned_peak_bytes"],
+        "argument_size_in_bytes", "bytes_per_device",
+        "collective_counts_per_device", "collective_bytes_per_device",
+        "flops_per_device", "t_compute", "t_memory", "t_collective",
+        "bottleneck")},
+        "meta_over_peak": row.get("meta_over_peak"),
         "card": {k: row["card"][k] for k in (
             "step_ms", "step_ms_all", "peak_bytes",
             "collective_counts_per_device", "collective_bytes_per_device")}
@@ -4519,11 +4502,15 @@ def phase_dryrun():
     log(f"dryrun [{card}]: " + json.dumps(dict(
         pipegcn=gcn, lm=slim, moe={k: moe[k] for k in (
             "arch", "shape", "opt_sharding", "argument_size_in_bytes",
+            "bytes_per_device", "collective_counts_per_device",
+            "collective_bytes_per_device", "bottleneck")},
+        sweep={mesh: {f"{r['arch']} {r['shape']}": {f: r[f] for f in (
+            "argument_size_in_bytes", "unused_argument_leaves",
+            "bytes_per_device", "collective_total_bytes",
             "collective_counts_per_device", "collective_bytes_per_device",
-            "bottleneck")}, refused={" ".join(k): {f: r[f] for f in (
-                "argument_size_in_bytes", "collective_counts_per_device",
-                "collective_bytes_per_device", "bottleneck")}
-                for k, r in refused.items()}, routed_card=routed)))
+            "bottleneck", "run_s")} for r in rows}
+            for mesh, rows in sweep.items()},
+        routed_card=routed)))
     torch.cuda.empty_cache()
     log(f"dryrun: phase took {time.perf_counter() - t0:.1f} s")
 

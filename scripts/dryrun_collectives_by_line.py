@@ -3,10 +3,11 @@ abstract (``--device meta``) as the dry-run runs it, with every collective
 it issues charged to the innermost line of the model code
 (``repro_torch/models/``, shardctx aside) on the Python stack when it was
 issued, with the shardctx form it went through (a collective of the
-backward has no model line: autograd's engine issues it).
+backward has no model line: it is charged to the autograd node that
+issues it).
 
   PYTHONPATH=src python scripts/dryrun_collectives_by_line.py \
-      --arch deepseek-v2-236b --shape prefill_32k [--top 10]
+      --arch deepseek-v2-236b --shape prefill_32k [--top 10] [--multi-pod]
 
 Prints the combo's totals per collective type (equal to the dry-run's
 row) and the lines that issue the most bytes, with their count and bytes
@@ -25,7 +26,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--top", type=int, default=10)
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
+
+    import torch
 
     import repro_torch.launch.dryrun as dryrun
     models = os.sep + os.path.join("repro_torch", "models") + os.sep
@@ -39,7 +43,10 @@ def main(argv=None) -> int:
             "shardctx.py") and not f.name.startswith("__")), None)
         line = next((f"{f.filename.split(models)[-1]}:{f.lineno} {f.name}"
                      for f in frames if not f.filename.endswith(
-                         "shardctx.py")), "(backward)")
+                         "shardctx.py")), None)
+        if line is None:
+            node = torch._C._current_autograd_node()
+            line = f"(backward: {node.name() if node else '?'})"
         return line + (f" via shardctx.{form}" if form else "")
 
     class ByLine(dryrun.CollectiveCounter):
@@ -56,7 +63,8 @@ def main(argv=None) -> int:
             return out
 
     dryrun.CollectiveCounter = ByLine
-    r = dryrun.dryrun_one(args.arch, args.shape, device="meta")
+    r = dryrun.dryrun_one(args.arch, args.shape, device="meta",
+                          multi_pod=args.multi_pod)
     print(f"{args.arch} {args.shape} {r['mesh']}: "
           f"{r['collective_total_bytes']} B in all; per type "
           f"{r['collective_counts_per_device']} "

@@ -17,6 +17,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.models.config import ArchConfig, InputShape
@@ -33,12 +34,31 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
+class _MetaDraws(TorchDispatchMode):
+    """Answers a draw on the ``meta`` device (``torch.randn`` with a
+    generator) with an empty tensor of its shape and dtype, without the
+    reference decomposition that a meta draw otherwise runs op by op."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.randn.generator:
+            return torch.empty(args[0], dtype=kwargs.get("dtype"),
+                               device="meta")
+        return func(*args, **kwargs)
+
+
 @functools.lru_cache(maxsize=None)
+def meta_param_tree(cfg: ArchConfig) -> dict:
+    """`LM(cfg).init_params`'s tree with every leaf on the ``meta`` device
+    (no memory, any model size), drawn once per config: callers only read
+    it."""
+    with _MetaDraws():
+        return LM(cfg).init_params(_MetaGenerator())
+
+
 def param_count(cfg: ArchConfig) -> int:
-    """The number of parameters `LM(cfg).init_params` draws, counted from
-    leaves on the ``meta`` device (no memory, any model size)."""
-    params = LM(cfg).init_params(_MetaGenerator())
-    return sum(x.numel() for x in tree_leaves(params))
+    """The number of parameters `LM(cfg).init_params` draws."""
+    return sum(x.numel() for x in tree_leaves(meta_param_tree(cfg)))
 
 
 def _attn_flops_per_tok(cfg: ArchConfig, kv_len: float, causal: bool) -> float:

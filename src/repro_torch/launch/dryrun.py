@@ -10,12 +10,12 @@ parameters, optimizer state, inputs and caches are DTensors with the
 placements of JAX's spec trees, and rank 0's step runs in one of two modes:
 
   --device meta   abstract: ``meta`` tensors, no memory and no arithmetic;
-                  counts the collectives and reckons bytes (the
-                  counterpart of lower + compile)
+                  counts the collectives and the bytes (the counterpart
+                  of lower + compile)
   --device cuda   the card (the default): rank 0's local program at its
                   true production shapes, with the card's peak memory and
-                  step time measured. The collectives move nothing, so the
-                  values computed mean nothing.
+                  step time measured besides. The collectives move
+                  nothing, so the values computed mean nothing.
 
 The step runs under ``shardctx.dtensor_ops()``: DTensor's
 ``implicit_replication`` (the plain tensors the model makes inside the
@@ -26,30 +26,50 @@ other op's layout and collectives, where JAX lets GSPMD choose. The
 abstract mode's mesh is of cpu device type (its tensors are on meta), on
 which DTensor would move a shard to another dim by an all-gather, as gloo
 has no all-to-all; the dry-run has it issue the card's all-to-all there
-too, so the two modes count the same collectives. XLA's memory and cost
-analysis have no counterpart: the keys ``temp_size_in_bytes``,
-``hlo_*``, ``compile_s`` and ``collective_bytes_tpu_wire`` are not
-produced; the card mode measures ``peak_bytes`` and ``step_ms`` instead.
+too, so the two modes count the same collectives.
+
+The step's first run, in both modes, goes through `StepMemory`, the
+counterpart of XLA's memory analysis: ``argument_size_in_bytes`` counts
+the argument leaves some op of the step reads (JAX's ``jax.jit`` drops
+the others; ``unused_argument_leaves`` says how many were dropped), and
+``temp_size_in_bytes`` is the peak of the bytes the step's own storages
+hold at once, so ``bytes_per_device`` (arguments + temporaries, JAX's
+key) is the peak live bytes. JAX also counts an int32 scalar that the
+port keeps as a Python int (decode's position, Adam's step count): 4
+bytes fewer here on those rows. The card mode also measures
+``peak_bytes`` (the allocator's peak above what the process held before
+the combo) and ``step_ms``. XLA's cost analysis has
+no counterpart: the keys ``hlo_*``, ``generated_code_size_in_bytes``,
+``compile_s`` (``run_s`` is the first run's seconds) and
+``collective_bytes_tpu_wire`` are not produced. `check_rows` holds a
+mesh's rows to the gates JAX holds its artifacts to (`check_row` one
+row).
 
 Importing this module starts no process group.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all --device meta --out dryrun.json
+  python -m repro_torch.launch.dryrun --all --shape train_4k --device meta
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import logging
 import os
 import time
 import traceback
+import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 
 from repro_torch.analysis.cost import analytic_cost
@@ -187,14 +207,157 @@ def opt_sharding_rules(mesh):
     }
 
 
-def local_bytes(tree) -> int:
-    """Bytes of this rank's shards of every tensor in `tree`."""
-    total = 0
-    for x in tree_flatten(tree)[0]:
-        if isinstance(x, torch.Tensor):
-            loc = x.to_local() if isinstance(x, DTensor) else x
-            total += loc.numel() * loc.element_size()
-    return total
+def _tensors(tree):
+    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def local_bytes(tree, keep=None) -> int:
+    """Bytes of this rank's shards of every tensor in `tree` (of those
+    whose entry of `keep`, one per tensor, is true)."""
+    xs = _tensors(tree)
+    keep = [True] * len(xs) if keep is None else keep
+    return sum(_local(x).numel() * _local(x).element_size()
+               for x, k in zip(xs, keep) if k)
+
+
+# ops that read only their arguments' metadata (shape, dtype, device)
+_METADATA_ONLY = frozenset(
+    ["empty_like", "zeros_like", "ones_like", "full_like", "rand_like",
+     "randn_like", "new_empty", "new_empty_strided", "new_zeros", "new_ones",
+     "new_full"])
+# in-place ops that overwrite their first argument without reading it
+_OVERWRITES = frozenset(["copy_", "fill_", "zero_"])
+# ops whose result holds their first argument's memory under a storage of
+# its own on the card (a functional collective's result, wrapped for
+# autograd or waited on)
+_ALIASES = frozenset(["_wrap_tensor_autograd", "wait_tensor"])
+
+
+def _storage(t):
+    return t.untyped_storage()
+
+
+def _span(t) -> tuple:
+    """The byte range [lo, hi) of its storage that tensor `t` spans."""
+    lo = t.storage_offset() * t.element_size()
+    if t.numel() == 0:
+        return lo, lo
+    n = 1 + sum((size - 1) * stride for size, stride in zip(t.shape,
+                                                             t.stride()))
+    return lo, lo + n * t.element_size()
+
+
+def _covered(span, ranges) -> bool:
+    """Whether the byte range `span` lies within the union of `ranges`."""
+    lo, hi = span
+    for a, b in sorted(ranges):
+        if a <= lo < b:
+            lo = b
+    return lo >= hi
+
+
+class StepMemory(TorchDispatchMode):
+    """What a step does with memory on this rank, seen op by op (each
+    DTensor op as the local ops it runs, forward and backward): which of
+    the step's argument storages some op reads, and the peak of the bytes
+    of the storages the step makes that are alive at once (each counted
+    from the op that makes it until it dies, by a finaliser on the
+    storage). Works on ``meta`` tensors, where nothing is allocated, and on
+    the card.
+
+    A read is any op but a view (which reads nothing itself: the ops that
+    read the view do), one that reads only metadata (``empty_like``,
+    ``new_zeros``, ...), a store into an argument (``copy_``, ``fill_``,
+    ``zero_`` into it, as a cache layer the step replaces whole), and a
+    read of entries such a store wrote before: JAX drops an argument whose
+    new value the step computes without it from the compiled step, as it
+    drops one the step never uses. An assignment into an argument
+    (``x[:, a:b] = y``, JAX's ``dynamic_update_slice``, which passes the
+    other entries through) is a read: `assignments()` gives the function
+    mode that sees it."""
+
+    def __init__(self, args):
+        super().__init__()
+        # the arguments' storages (kept alive by the caller: holding them
+        # here would keep them past the step)
+        self.args = {id(_storage(_local(x))) for x in _tensors(args)}
+        self.read: set = set()
+        self.live = self.peak = 0
+        # id(storage) -> [bytes, storages alive] of the memory it holds
+        self._made: dict = {}
+        self._stored: dict = {}         # id(storage) -> [(lo, hi)] stored
+
+    def _free(self, key: int):
+        held = self._made.pop(key, None)
+        if held is not None:
+            held[1] -= 1
+            if held[1] == 0:
+                self.live -= held[0]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if DTensor in types:
+            # let DTensor turn the op into local ops, which come back here
+            return NotImplemented
+        kwargs = kwargs or {}
+        name = func._overloadpacket.__name__
+        if not func.is_view and name not in _METADATA_ONLY:
+            ins = _tensors((args, kwargs))
+            if name in _OVERWRITES and ins:
+                dst, ins = ins[0], ins[1:]
+                key, (lo, hi) = id(_storage(dst)), _span(dst)
+                if key in self.args and (hi - lo) == \
+                        dst.numel() * dst.element_size():
+                    self._stored.setdefault(key, []).append((lo, hi))
+                else:
+                    ins = [dst] + ins
+            for t in ins:
+                key = id(_storage(t))
+                if key in self.args and not _covered(
+                        _span(t), self._stored.get(key, ())):
+                    self.read.add(key)
+        out = func(*args, **kwargs)
+        src = _tensors(args)[:1] if name in _ALIASES else []
+        held = self._made.get(id(_storage(src[0]))) if src else None
+        for t in _tensors(out):
+            if isinstance(t, FakeTensor):
+                continue        # DTensor's sharding propagation's
+            st = _storage(t)
+            key = id(st)
+            if key in self.args or key in self._made:
+                continue
+            if held is None:
+                held = [st.nbytes(), 0]
+                self.live += held[0]
+                self.peak = max(self.peak, self.live)
+            held[1] += 1
+            self._made[key] = held
+            weakref.finalize(st, self._free, key)
+            held = None
+        return out
+
+    def assignments(self):
+        """A function mode under which each ``x[key] = y`` into an argument
+        counts as a read of it."""
+        mem = self
+
+        class Assignments(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func is torch.Tensor.__setitem__ and \
+                        isinstance(args[0], torch.Tensor):
+                    key = id(_storage(_local(args[0])))
+                    if key in mem.args:
+                        mem.read.add(key)
+                return func(*args, **(kwargs or {}))
+        return Assignments()
+
+    def read_leaves(self, args) -> list:
+        """Of the argument leaves (tensors of `args`), whether some op of
+        the step read each one's storage."""
+        return [id(_storage(_local(x))) in self.read for x in _tensors(args)]
 
 
 def _quiet_dtensor_logs():
@@ -219,6 +382,7 @@ def dryrun_one(arch_id: str, shape_name: str, multi_pod: bool = False,
     cfg, variant = variant_for(get_arch(arch_id), shape_name)
     chips = 512 if multi_pod else 256
     dev = torch.device(device)
+    base = allocated(dev)
     with fake_process_group(chips), _card_alltoall():
         mesh = make_production_mesh(
             multi_pod=multi_pod,
@@ -248,16 +412,24 @@ def dryrun_one(arch_id: str, shape_name: str, multi_pod: bool = False,
             if lower_only:
                 return result
             t1 = time.perf_counter()
-            with dtensor_ops(cfg.padded_vocab), CollectiveCounter() as cc:
+            mem = StepMemory(args)
+            with dtensor_ops(cfg.padded_vocab), CollectiveCounter() as cc, \
+                    mem, mem.assignments():
                 out = fn(*args)
             synchronize(dev)
-            result["run_s"] = round(time.perf_counter() - t1, 1)
+            result["run_s"] = round(time.perf_counter() - t1, 3)
+            read = mem.read_leaves(args)
+            result["argument_size_in_bytes"] = local_bytes(args, read)
+            result["unused_argument_leaves"] = read.count(False)
             result["output_size_in_bytes"] = local_bytes(out)
             del out
+            result["temp_size_in_bytes"] = mem.peak
+            result["bytes_per_device"] = (result["argument_size_in_bytes"]
+                                          + mem.peak)
             if dev.type != "meta":
                 with dtensor_ops(cfg.padded_vocab):
-                    result.update(measure(lambda: fn(*args), dev, steps))
-                result["bytes_per_device"] = result["peak_bytes"]
+                    result.update(measure(lambda: fn(*args), dev, steps,
+                                          base))
     # every collective that ran was counted (no loop body counted once)
     result["while_mult"] = 1
     result["collective_counts_per_device"] = cc.counts
@@ -267,9 +439,16 @@ def dryrun_one(arch_id: str, shape_name: str, multi_pod: bool = False,
     return result
 
 
-def measure(step, dev: torch.device, steps: int) -> dict:
+def allocated(dev: torch.device) -> int:
+    """Bytes the card's allocator holds now (0 off the card): what a
+    combo's peak is taken from (the memory other code holds)."""
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def measure(step, dev: torch.device, steps: int, base: int = 0) -> dict:
     """Median wall time of `steps` calls of step() (each ended by a device
-    sync) and, on the card, the peak memory over them."""
+    sync) and, on the card, the peak memory over them above `base` (the
+    bytes held before the step's arguments were made)."""
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
@@ -283,14 +462,21 @@ def measure(step, dev: torch.device, steps: int) -> dict:
         del out
     times.sort()
     return {"step_ms": times[len(times) // 2], "step_ms_all": times,
-            "peak_bytes": int(torch.cuda.max_memory_allocated(dev))
+            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)) - base
             if cuda else None}
+
+
+@functools.lru_cache(maxsize=None)
+def _cost(cfg, shape) -> tuple:
+    """(analytic_cost, active parameters) of a combo: the same for every
+    mesh."""
+    return analytic_cost(cfg, shape), _active_params(cfg)
 
 
 def _roofline(cfg, shape, chips: int, coll_bytes: int) -> dict:
     """Analytic FLOPs and HBM bytes per device and the roofline terms on
     the H100 constants (`launch.mesh`), with JAX's keys."""
-    ac = analytic_cost(cfg, shape)
+    ac, active = _cost(cfg, shape)
     flops = ac["flops_global"] / chips
     bytes_hbm = ac["hbm_bytes_global"] / chips
     out = {"flops_per_device": flops, "hbm_bytes_per_device": bytes_hbm,
@@ -303,8 +489,7 @@ def _roofline(cfg, shape, chips: int, coll_bytes: int) -> dict:
     # MODEL_FLOPS (6·N_active·D for train, 2·N_active per token for serve)
     tokens = shape.global_batch * (shape.seq_len if shape.mode != "decode"
                                    else 1)
-    model_flops = (6 if shape.mode == "train" else 2) * _active_params(cfg) \
-        * tokens
+    model_flops = (6 if shape.mode == "train" else 2) * active * tokens
     out["model_flops_total"] = float(model_flops)
     out["model_flops_ratio"] = (float(model_flops / ac["flops_global"])
                                 if ac["flops_global"] else 0.0)
@@ -325,6 +510,52 @@ def _active_params(cfg) -> int:
     return total
 
 
+BOTTLENECKS = ("compute", "memory", "collective")
+
+
+def check_row(r, chips: int) -> None:
+    """JAX's gates on one row of its dry-run artifacts
+    (tests/test_dryrun_artifacts.py): no ``error``; on `chips`, its step
+    run (``run_s`` > 0, the counterpart of JAX's ``compile_s``),
+    t_compute ≥ 0, t_memory > 0, a bottleneck among `BOTTLENECKS`; a train
+    row's model-FLOPs ratio in (0.2, 1.3); no decode row compute-bound. A
+    PipeGCN row (``dryrun_pipegcn``'s, arch ``pipegcn-*``) needs its
+    all-to-all bytes > 0 instead of the LM rows' keys. Raises
+    AssertionError naming the row."""
+    tag = (r.get("arch"), r.get("shape"), r.get("mesh"))
+    assert "error" not in r, (tag, r.get("error", "")[:300])
+    assert r["chips"] == chips, (tag, r["chips"])
+    assert r["t_compute"] >= 0 and r["t_memory"] > 0, tag
+    assert r["bottleneck"] in BOTTLENECKS, (tag, r["bottleneck"])
+    if r["arch"].startswith("pipegcn"):
+        assert r["collective_bytes_per_device"]["all-to-all"] > 0, tag
+        return
+    assert r["run_s"] > 0, (tag, r.get("run_s"))
+    if r["mode"] == "train":
+        assert 0.2 < r["model_flops_ratio"] < 1.3, (
+            tag, r["model_flops_ratio"])
+    if r["mode"] == "decode":
+        # decode must never be compute-bound at these batch sizes
+        assert r["bottleneck"] != "compute", tag
+
+
+def check_rows(rows, chips: int) -> None:
+    """JAX's gates on a mesh's artifacts: one LM row for each of the
+    10 archs × 4 shapes, and every row, PipeGCN's among them, through
+    `check_row`."""
+    errors = [r for r in rows if "error" in r]
+    assert not errors, [(r.get("arch"), r.get("shape"), r["error"][:300])
+                        for r in errors[:3]]
+    lm = [r for r in rows if not r["arch"].startswith("pipegcn")]
+    combos = {(r["arch"], r["shape"]) for r in lm}
+    assert len(lm) == len(combos) == len(ARCH_IDS) * len(INPUT_SHAPES), \
+        (len(lm), len(combos))
+    assert {a for a, _ in combos} == set(ARCH_IDS)
+    assert {s for _, s in combos} == set(INPUT_SHAPES)
+    for r in rows:
+        check_row(r, chips)
+
+
 def skip_reason(arch_id: str, shape_name: str) -> str | None:
     """Combos skipped by design: none (dense archs run the sliding-window
     decode variant for long_500k)."""
@@ -336,9 +567,11 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES))
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every combo (of the --arch or --shape given)")
     ap.add_argument("--lower-only", action="store_true",
-                    help="build the sharded arguments only")
+                    help="build the sharded arguments only (their bytes "
+                    "count every leaf: no step runs to read them)")
     ap.add_argument("--opt-sharding", action="store_true")
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -350,7 +583,8 @@ def main(argv=None):
     if args.all:
         for a in ARCH_IDS:
             for s in INPUT_SHAPES:
-                combos.append((a, s, args.multi_pod))
+                if args.arch in (None, a) and args.shape in (None, s):
+                    combos.append((a, s, args.multi_pod))
     else:
         combos.append((args.arch, args.shape, args.multi_pod))
 
@@ -365,6 +599,8 @@ def main(argv=None):
             results.append(r)
             print(f"[dryrun OK ] {tag}: lower={r.get('lower_s')}s "
                   f"run={r.get('run_s')}s step_ms={r.get('step_ms')} "
+                  f"args={r.get('argument_size_in_bytes')} "
+                  f"bytes_per_device={r.get('bytes_per_device')} "
                   f"peak={r.get('peak_bytes')} "
                   f"coll={r.get('collective_total_bytes')} "
                   f"bottleneck={r.get('bottleneck')}", flush=True)

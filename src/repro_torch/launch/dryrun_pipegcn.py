@@ -38,7 +38,7 @@ from repro_torch.core.trace_utils import (CollectiveCounter, RecordingBackend,
                                           count_exchanges,
                                           expected_boundary_collectives)
 from repro_torch.kernels.gcn_spmm import TILE, SplitSpec
-from repro_torch.launch.dryrun import local_bytes, measure
+from repro_torch.launch.dryrun import allocated, local_bytes, measure
 from repro_torch.launch.mesh import (HBM_BW, NET_BW, PEAK_FLOPS_F32,
                                      fake_process_group)
 
@@ -125,6 +125,7 @@ def dryrun_pipegcn(multi_pod: bool, variant: str = "pipegcn", sizes=None,
     n = 512 if multi_pod else 256
     sizes = sizes or (SMALL if multi_pod else PROD)
     dev = torch.device(device)
+    base = allocated(dev)
     mc = ModelConfig(kind="sage", feat_dim=sizes["feat_dim"],
                      hidden=sizes["hidden"], num_layers=sizes["num_layers"],
                      num_classes=sizes["num_classes"], dropout=0.0,
@@ -153,7 +154,7 @@ def dryrun_pipegcn(multi_pod: bool, variant: str = "pipegcn", sizes=None,
             backend = SpmdBackend(n_local=1)
             result.update(measure(lambda: model.train_step(
                 topo, params, buffers, data, gen, backend=backend), dev,
-                steps))
+                steps, base))
             result["bytes_per_device"] = result["peak_bytes"]
     # per-step boundary-collective count: recorded (schedule truth) + the
     # analytic 2 (fused) vs 2L-1 (per-layer) expectation

@@ -10,14 +10,13 @@ mesh and makes this rank's local shard.
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.utils._pytree import tree_map
 
-from repro_torch.analysis.cost import _MetaGenerator
+from repro_torch.analysis.cost import meta_param_tree
 from repro_torch.models.config import ArchConfig, InputShape
 from repro_torch.models.model import LM
 from repro_torch.models.shardctx import P, from_local, is_spec, placements
@@ -76,12 +75,7 @@ def fill_normal(seed: int):
 def meta_params(lm: LM) -> dict:
     """The parameter tree's shapes and dtypes, on ``meta`` (drawn once per
     config; the tree is only read)."""
-    return _meta_params(lm.cfg)
-
-
-@functools.lru_cache(maxsize=None)
-def _meta_params(cfg: ArchConfig) -> dict:
-    return LM(cfg).init_params(_MetaGenerator())
+    return meta_param_tree(lm.cfg)
 
 
 def abstract_params(lm: LM, mesh, device="cuda", seed: int = 0):
@@ -111,7 +105,9 @@ def input_specs(cfg: ArchConfig, shape: InputShape, mesh, device="cuda",
     tok = sharded((b, seq), torch.int32, P(bspec, None), mesh, device, tokens)
     batch = {"tokens": tok}
     if shape.mode != "decode":
-        batch["labels"] = tok
+        # a tensor of its own: a step may read one and not the other
+        batch["labels"] = sharded((b, seq), torch.int32, P(bspec, None),
+                                  mesh, device, tokens)
     emb = fill_normal(seed + 1)
     if cfg.is_encdec:
         batch["audio_embed"] = sharded(

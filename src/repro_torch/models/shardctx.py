@@ -33,19 +33,27 @@ index that adds dims), the SSD's ``cumsum`` under autograd
 (`cumsum_local`: its backward flips the gradient, for which 2.11 has no
 rule), and a matmul or a two-operand einsum whose flatten of dims would
 cross a sharded dim (`local_einsum`: MLA's latent cache, sharded on its
-length, in decode). The attention core is the one model function that
-knows of shards (`shard_local`): it runs on each rank's local shards, as
-a shard_map'ed attention would.
+length, in decode). Two take MoE's layouts where DTensor's own rules
+would gather a shard whole: `take` reads a dim that x shards as partial
+sums (the combine's expert outputs, sharded on the expert dim), and an
+expert product whose expert weights are sharded where the dispatched
+tokens are whole goes to `local_einsum`, which cuts the tokens per rank.
+The attention core is the one model function that knows of shards
+(`shard_local`): it runs on each rank's local shards, as a shard_map'ed
+attention would.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import functools
+import itertools
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch._prims_common import infer_size
 from torch.overrides import TorchFunctionMode
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
@@ -145,12 +153,20 @@ def _replicated(x, mesh):
                               run_check=False)
 
 
+def _contiguous_strides(shape) -> tuple:
+    strides, n = [], 1
+    for size in reversed(shape):
+        strides.append(n)
+        n *= max(size, 1)
+    return tuple(reversed(strides))
+
+
 def from_local(local, mesh, pl, shape):
     """The DTensor of global `shape` (contiguous strides) laid out by the
     placements `pl`, whose shard on this rank is `local`."""
     shape = torch.Size(shape)
     return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=_contiguous_strides(shape))
 
 
 def _box(x):
@@ -267,7 +283,7 @@ def _reshape_dtensor(x, shape):
     try:
         return x.reshape(*shape)
     except RuntimeError:
-        new = torch.empty(x.shape, device="meta").reshape(*shape).shape
+        new = infer_size(shape, x.numel())
         first = next((i for i, (a, b) in enumerate(zip(x.shape, new))
                       if a != b), min(x.ndim, len(new)))
         pl = [Replicate() if isinstance(p, Shard) and p.dim >= first else p
@@ -397,6 +413,78 @@ def _einsum_groups(equation: str, shapes) -> list | None:
     return [[[s.index(c) for c in g if c in s] for g in groups] for s in ins]
 
 
+def _batch_split(equation: str, operands) -> bool:
+    """Whether, on some mesh dim, one operand of a two-operand einsum is
+    sharded on its leading letter, a batch letter (one in both operands
+    and the output), that the other holds whole there (replicated, or
+    sharded on another letter): MoE's expert products, whose expert
+    weights (experts, ·, ·) are sharded on 'model', where the dispatched
+    tokens are not sharded on the expert dim. DTensor's own einsum may
+    then make the product a partial sum and reduce the whole output,
+    where `local_einsum` slices the whole operand and keeps the letter
+    sharded. A partial-sum operand is left to DTensor. The dense archs'
+    einsums are left alone: the SSD's chunk products and MLA's attention
+    products (their head letter, sharded in one operand and whole in the
+    other, is no operand's leading letter), the attention scores."""
+    ins = equation.replace(" ", "").partition("->")[0].split(",")
+    out = equation.partition("->")[2].strip()
+    mesh = next(o for o in operands if isinstance(o, DTensor)).device_mesh
+    pls = [o.placements if isinstance(o, DTensor)
+           else (Replicate(),) * mesh.ndim for o in operands]
+    for i in range(mesh.ndim):
+        for a, b in ((0, 1), (1, 0)):
+            pa, pb = pls[a][i], pls[b][i]
+            if (not isinstance(pa, Shard) or pa.dim != 0
+                    or isinstance(pb, Partial)):
+                continue
+            c = ins[a][0]
+            if c in ins[b] and c in out and not (
+                    isinstance(pb, Shard) and ins[b][pb.dim] == c):
+                return True
+    return False
+
+
+class _Cut(torch.autograd.Function):
+    """DTensor `x`'s local shard under the placements `pl`, where `x` is
+    whole on the mesh dims `cut` that `pl` shards: redistributed to `pl`
+    on its other mesh dims, then sliced. Its gradient comes back laid out
+    as `pl` on the cut dims (each rank's slice) and as `grad` on the
+    others, as it is: a redistribute's backward would gather it into x's
+    placements first."""
+
+    @staticmethod
+    def forward(ctx, x, pl, cut, grad):
+        mesh = x.device_mesh
+        mid = [p if c else q for p, q, c in zip(x.placements, pl, cut)]
+        size, offset = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                             pl)
+        _, base = compute_local_shape_and_global_offset(x.shape, mesh, mid)
+        ctx.mesh, ctx.shape = mesh, x.shape
+        ctx.grad = [p if c else g for p, c, g in zip(pl, cut, grad)]
+        local = x.redistribute(mesh, mid).to_local()
+        return local[tuple(slice(a - b, a - b + n)
+                           for a, b, n in zip(offset, base, size))]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (from_local(g.contiguous(), ctx.mesh, ctx.grad, ctx.shape),
+                None, None, None)
+
+
+def _local_shard(x, pl, grad):
+    """DTensor `x`'s local shard under the placements `pl`, its gradient
+    laid out by `grad`. Where x is whole on a mesh dim that `pl` shards, it
+    is cut per rank (`_Cut`) and its gradient comes back sharded there, as
+    `pl`: the gradient of an expert product for the dispatched tokens,
+    which the take that dispatched them adds per rank into a partial sum,
+    where a redistribute's backward would gather it whole."""
+    cut = [isinstance(p, Replicate) and isinstance(q, Shard)
+           for p, q in zip(x.placements, pl)]
+    if any(cut):
+        return _Cut.apply(x, pl, cut, grad)
+    return x.redistribute(x.device_mesh, pl).to_local(grad_placements=grad)
+
+
 def local_einsum(equation: str, *operands):
     """``torch.einsum(equation, a, b)`` on each rank's shards, for DTensor
     operands (plain ones count as replicated). On each mesh dim one letter
@@ -440,8 +528,7 @@ def local_einsum(equation: str, *operands):
                 pls[k].append(Replicate())
                 grads[k].append(Replicate())
             out_pl.append(Replicate())
-    local = [o.redistribute(mesh, pl).to_local(grad_placements=g)
-             for o, pl, g in zip(ops, pls, grads)]
+    local = [_local_shard(o, pl, g) for o, pl, g in zip(ops, pls, grads)]
     val = torch.einsum(equation, *local)
     size = {c: n for s, o in zip(ins, ops) for c, n in zip(s, o.shape)}
     return from_local(val, mesh, out_pl, tuple(size[c] for c in out))
@@ -478,6 +565,103 @@ def _local_indices(indices, mesh, pl, shape) -> tuple:
     return tuple(out)
 
 
+def _take_layout(x, indices):
+    """The layout of ``x[i0, ..., ik]`` on each rank's shard: (x's
+    placements to index, the output's placements, the output's global
+    shape, the mesh dims laid out as partial sums). On each mesh dim: a
+    kept dim of x keeps its sharding, and a partial sum stays one. Where x
+    is sharded on an indexed dim, each rank reads only the entries whose
+    index falls in its own shard and takes 0 for the others (exactly one
+    rank holds each entry), with the indices whole there, and the output
+    is a partial sum there; that is taken where the output's local bytes
+    (the most its later reduction moves, where DTensor next needs the
+    whole value: fewer where a linear op such as a sum over a dim comes
+    first) and the indices gathered cost no more than gathering x there.
+    Else x is gathered there, and the output is sharded as the first index
+    sharded there, or whole."""
+    mesh, k = x.device_mesh, len(indices)
+    shape = torch.broadcast_shapes(*(i.shape for i in indices))
+    out_shape = tuple(shape) + tuple(x.shape[k:])
+    # the first index sharded on each mesh dim lays the output out
+    by_index = [next((Shard(p.dim + len(shape) - i.ndim) for i in indices
+                      if isinstance(i, DTensor)
+                      for p in (i.placements[d],) if isinstance(p, Shard)),
+                     None) for d in range(mesh.ndim)]
+    x_pl, out_pl, masked = [], [], []
+    for d, (xp, ip) in enumerate(zip(x.placements, by_index)):
+        if isinstance(xp, Shard) and xp.dim >= k and ip is None:
+            x_pl.append(xp)                                 # a kept dim
+            out_pl.append(Shard(xp.dim - k + len(shape)))
+        elif isinstance(xp, Partial) and ip is None:
+            x_pl.append(xp)
+            out_pl.append(xp)
+        else:
+            if (isinstance(xp, Shard) and xp.dim < k
+                    and x.dtype is not torch.bool):
+                masked.append(d)
+            x_pl.append(Replicate())
+            out_pl.append(ip if ip is not None else Replicate())
+    # the partial-sum dims of least cost: x's bytes gathered where x is
+    # gathered, the output's local bytes where it is a partial sum, and
+    # the indices gathered on the partial-sum dims that shard them
+    best, chosen = None, []
+    for n in range(len(masked), -1, -1):
+        for dims in itertools.combinations(masked, n):
+            xp = [x.placements[d] if d in dims else p
+                  for d, p in enumerate(x_pl)]
+            op = [Partial() if d in dims else p for d, p in enumerate(out_pl)]
+            cost = ((_local_bytes(x.shape, mesh, xp, x)
+                     if xp != list(x.placements) else 0)
+                    + (_local_bytes(out_shape, mesh, op, x) if dims else 0)
+                    + sum(_local_bytes(i.shape, mesh, [
+                        Replicate() if e in dims else p
+                        for e, p in enumerate(i.placements)], i)
+                        for i in indices if isinstance(i, DTensor)
+                        and any(isinstance(i.placements[d], Shard)
+                                for d in dims)))
+            if best is None or cost < best:
+                best, chosen = cost, list(dims)
+    for d in chosen:
+        x_pl[d], out_pl[d] = x.placements[d], Partial()
+    return x_pl, out_pl, out_shape, chosen
+
+
+def _local_bytes(shape, mesh, pl, like) -> int:
+    """Bytes of this rank's shard of a tensor of `shape` and `like`'s dtype
+    laid out by the placements `pl`."""
+    size, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return math.prod(size) * like.element_size()
+
+
+def _masked_indices(idx, k, shape, pl, mesh):
+    """Index tensors `idx` of a tensor of global `shape` laid out by `pl`,
+    each made relative to this rank's box on the indexed dims `pl` shards
+    (clamped into it), and the mask of the entries inside the box (None
+    where no indexed dim is sharded)."""
+    dims = sorted({p.dim for p in pl if isinstance(p, Shard) and p.dim < k})
+    if not dims:
+        return idx, None
+    size, offset = compute_local_shape_and_global_offset(shape, mesh, pl)
+    idx, inside = list(idx), None
+    for j in dims:
+        rel = idx[j].long() - offset[j]
+        ok = (rel >= 0) & (rel < size[j])
+        inside = ok if inside is None else inside & ok
+        idx[j] = rel.clamp(0, max(size[j] - 1, 0))
+    return tuple(idx), inside
+
+
+def _zero_outside(val, inside, kept: int):
+    """`val` (index dims, then `kept` dims) with 0 where `inside` is
+    False."""
+    if inside is None:
+        return val
+    lead = val.shape[:val.ndim - kept]
+    mask = torch.broadcast_to(inside, lead).reshape(lead + (1,) * kept)
+    return torch.where(mask, val, torch.zeros((), dtype=val.dtype,
+                                              device=val.device))
+
+
 class _Take(torch.autograd.Function):
     """``x[i0, ..., ik]`` (integer index tensors on x's leading dims) on each
     rank's shard; see `take`."""
@@ -485,55 +669,67 @@ class _Take(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, *indices):
         mesh, k = x.device_mesh, len(indices)
-        shape = torch.broadcast_shapes(*(i.shape for i in indices))
-        # the first index sharded on each mesh dim lays the output out
-        by_index = [next((Shard(p.dim + len(shape) - i.ndim) for i in indices
-                          if isinstance(i, DTensor)
-                          for p in (i.placements[d],) if isinstance(p, Shard)),
-                         None) for d in range(mesh.ndim)]
-        x_pl, out_pl = [], []
-        for xp, ip in zip(x.placements, by_index):
-            if ip is not None:
-                x_pl.append(Replicate())
-                out_pl.append(ip)
-            elif isinstance(xp, Shard) and xp.dim >= k:     # a kept dim
-                x_pl.append(xp)
-                out_pl.append(Shard(xp.dim - k + len(shape)))
-            elif isinstance(xp, Partial):
-                x_pl.append(xp)
-                out_pl.append(xp)
-            else:                               # an indexed dim: gathered
-                x_pl.append(Replicate())
-                out_pl.append(Replicate())
-        ctx.indices, ctx.x_shape, ctx.nb = indices, x.shape, len(shape)
+        x_pl, out_pl, out_shape, masked = _take_layout(x, indices)
+        ctx.indices, ctx.x_shape, ctx.x_pl, ctx.masked = \
+            indices, x.shape, x_pl, masked
+        ctx.nb = len(out_shape) - (x.ndim - k)
         xl = x.redistribute(mesh, x_pl).to_local()
-        val = xl[_local_indices(indices, mesh, out_pl, shape)]
-        return from_local(val, mesh, out_pl, tuple(shape) + x.shape[k:])
+        idx = _local_indices(indices, mesh, out_pl, out_shape[:ctx.nb])
+        idx, inside = _masked_indices(idx, k, x.shape, x_pl, mesh)
+        if inside is not None and 0 in xl.shape[:k]:
+            # this rank holds none of the indexed entries
+            val = xl.new_zeros(torch.broadcast_shapes(*(i.shape for i in idx))
+                               + xl.shape[k:])
+        else:
+            val = _zero_outside(xl[idx], inside, x.ndim - k)
+        return from_local(val, mesh, out_pl, out_shape)
 
     @staticmethod
     def backward(ctx, grad):
         mesh, nb, k = grad.device_mesh, ctx.nb, len(ctx.indices)
+        if ctx.masked:
+            # the gradient whole on the partial-sum mesh dims: each rank
+            # adds the entries in its own shard, so x's gradient keeps x's
+            # placements there and nothing moves
+            grad = grad.redistribute(mesh, [
+                Replicate() if d in ctx.masked else p
+                for d, p in enumerate(grad.placements)])
         # each rank adds its own slots of the gradient: a partial sum over
         # the mesh dims that shard the slots
         pl = [(Partial() if p.dim < nb else Shard(p.dim - nb + k))
               if isinstance(p, Shard) else p for p in grad.placements]
+        for d in ctx.masked:
+            pl[d] = ctx.x_pl[d]
         size, _ = compute_local_shape_and_global_offset(ctx.x_shape, mesh, pl)
         gl = grad.to_local()
         idx = _local_indices(ctx.indices, mesh, grad.placements,
                              grad.shape[:nb])
-        out = gl.new_zeros(size).index_put_(idx, gl, accumulate=True)
+        idx, inside = _masked_indices(idx, k, ctx.x_shape, pl, mesh)
+        out = gl.new_zeros(size)
+        if inside is None or 0 not in size[:k]:
+            out.index_put_(idx, _zero_outside(gl, inside, len(size) - k),
+                           accumulate=True)
         return (from_local(out, mesh, pl, ctx.x_shape),) + (None,) * k
 
 
 def take(x, *indices):
     """``x[i0, ..., ik]`` for a DTensor `x` and integer index tensors (plain
     or DTensor) on its leading dims, on each rank's shard: the output is
-    laid out as the indices are (x gathered whole on those mesh dims and on
-    its indexed dims; its other dims keep their sharding), and the
-    gradient is each rank's slots added into x's shape, a partial sum where
-    the slots are sharded. DTensor's own index refuses, in some torch
-    releases, an index that splits one dim over several mesh dims, and a
-    backward (``index_put``) whose values have more dims than x."""
+    laid out as the indices are (x gathered whole on those mesh dims); its
+    kept dims keep their sharding; an indexed dim that x shards gives a
+    partial sum, each rank reading the entries in its own shard, where that
+    costs no more than gathering x (`_take_layout`). MoE's combine reads
+    the expert outputs, sharded on the expert dim, so: the (tokens, k, d_model) partial sums it reads are about as large
+    as the (experts, capacity, d_model) outputs whose all-gather they
+    replace (experts × capacity ≈ tokens × k × capacity factor), and the
+    sum over the k choices that follows is linear, so one reduction of the
+    (tokens, d_model) output remains, as GSPMD lowers JAX's scatter-add.
+    The gradient is each rank's slots added into x's shape, a partial sum
+    where the slots are sharded; on a partial-sum dim it is taken whole and
+    each rank adds the entries of its own shard. DTensor's own index
+    gathers such a dim whole, and refuses, in some torch releases, an index
+    that splits one dim over several mesh dims, and a backward
+    (``index_put``) whose values have more dims than x."""
     return _Take.apply(x, *indices)
 
 
@@ -589,8 +785,9 @@ def _route(func, args, kwargs, vocab):
         groups = (_einsum_groups(eq, [o.shape for o in ops])
                   if isinstance(eq, str) and len(ops) == 2 and not kwargs
                   and any(isinstance(o, DTensor) for o in ops) else None)
-        if groups and any(isinstance(o, DTensor) and _flatten_refused(o, gs)
-                          for o, gs in zip(ops, groups)):
+        if groups and (any(isinstance(o, DTensor) and _flatten_refused(o, gs)
+                           for o, gs in zip(ops, groups))
+                       or _batch_split(eq, ops)):
             return local_einsum(eq, *ops)
     elif func in (torch.cumsum, torch.Tensor.cumsum):
         x = args[0]
@@ -606,11 +803,15 @@ def _route(func, args, kwargs, vocab):
         ints = all(isinstance(i, torch.Tensor) and i.dtype != torch.bool
                    and not i.dtype.is_floating_point for i in key)
         # DTensor's own index serves elsewhere: its backward where x takes
-        # no gradient, its forward where no index splits a dim
+        # no gradient, its forward where no index splits a dim and x is
+        # sharded on no indexed dim (there it would take x's shard as a
+        # partial sum of a gathered output, or gather x by another plan)
         if (isinstance(x, DTensor) and key and ints
                 and ((torch.is_grad_enabled() and x.requires_grad)
                      or any(isinstance(i, DTensor) and _split_dims(i)
-                            for i in key))):
+                            for i in key)
+                     or any(isinstance(p, Shard) and p.dim < len(key)
+                            for p in x.placements))):
             return take(x, *key)
     elif func is F.embedding:
         idx, table = args[:2]

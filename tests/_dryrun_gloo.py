@@ -31,11 +31,13 @@ import sys
 
 WORLD = 4
 FLOOR = 1e-2
+# the two MoE archs shard their 4 experts over 'model' (2 per rank), so
+# the train and decode steps take `shardctx.take`'s partial-sum layout in
+# the combine; deepseek-v2 has MLA and MoE in one layer, and its decode
+# multiplies the length-sharded latent cache by the up-projections
+# (shardctx.local_einsum)
 ARCHS = ("qwen3-8b", "granite-moe-1b-a400m", "mamba2-780m",
-         "whisper-large-v3")
-# MLA and MoE in one layer: its decode multiplies the length-sharded latent
-# cache by the up-projections (shardctx.local_einsum)
-ARCHS_F64 = ARCHS + ("deepseek-v2-236b",)
+         "whisper-large-v3", "deepseek-v2-236b")
 OVERRIDES = {
     # 1 kv head: fewer kv heads than 'model' shards, as its 8 kv heads on
     # the production 16-way axis
@@ -43,6 +45,7 @@ OVERRIDES = {
     "deepseek-v2-236b": {"num_layers": 1, "first_dense_layers": 0},
 }
 QUANTITIES = ("loss", "grads", "adam", "decode", "caches")
+# and, once per run, "expert_product/local_einsum" (`expert_product`)
 
 
 def lift_f32():
@@ -164,8 +167,37 @@ def worker(rank: int, init: str, out: str, archs, seeds, casts: str):
         got["caches"] = rel(sc, caches)
         return got
 
+    def expert_product():
+        """MoE's dispatch and expert product in the layout torch 2.11's
+        sort gives the dry-run's MoE block (the slot index replicated, so
+        the dispatched tokens are whole on 'model'; the expert weights
+        sharded there on their leading dim, so the product goes to
+        `local_einsum`, which cuts the tokens per rank), forward and
+        backward (the cut's gradient sharded over 'model' into `take`'s
+        backward), against the plain ops."""
+        from repro_torch.models.shardctx import _batch_split
+        gen = torch.Generator().manual_seed(0)
+        xf = torch.randn(12, 8, dtype=f64, generator=gen)       # (T, D)
+        sel = torch.randint(0, 12, (4, 6), generator=gen)       # (E, C)
+        w = torch.randn(4, 8, 5, dtype=f64, generator=gen)      # (E, D, F)
+        cot = torch.randn(4, 6, 5, dtype=f64, generator=gen)
+        sx = shard_tree(xf, P("data", None)).requires_grad_()
+        sw = shard_tree(w, P("model", None, None)).requires_grad_()
+        with dtensor_ops():
+            tok = sx[sel]
+            assert _batch_split("ecd,edf->ecf", (tok, sw))
+            sy = torch.einsum("ecd,edf->ecf", tok, sw)
+            (sy.full_tensor() * cot).sum().backward()
+        xf.requires_grad_()
+        w.requires_grad_()
+        y = torch.einsum("ecd,edf->ecf", xf[sel], w)
+        (y * cot).sum().backward()
+        return rel([sy, sx.grad, sw.grad], [y, xf.grad, w.grad])
+
     res = {}
     lift = lift_f32() if casts == "lift" else contextlib.nullcontext()
+    err, path = expert_product()
+    res["expert_product/local_einsum"] = (err, path, 0)
     for arch in archs:
         for seed in seeds:
             with lift:
@@ -183,7 +215,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", default="0")
     ap.add_argument("--casts", choices=("keep", "lift"), default="lift")
-    ap.add_argument("--archs", default=",".join(ARCHS_F64))
+    ap.add_argument("--archs", default=",".join(ARCHS))
     args = ap.parse_args(argv)
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:

@@ -19,6 +19,7 @@ import json
 import sys
 
 LAYOUTS = ("default", "fsdp", "opt")
+JAX_ROW = ("starcoder2-3b", "prefill_32k")     # on 16×16
 
 
 def _key(path) -> str:
@@ -82,6 +83,11 @@ def _jax() -> dict:
                         for p, x in leaves if x.sharding is not None}
         for arch in ARCH_IDS:
             out[f"active/{arch}"] = d._active_params(get_arch(arch))
+    # one combo lowered and compiled: the rows that tests/_dryrun_jax_rows.py
+    # writes down for the card
+    r = d.dryrun_one(*JAX_ROW)
+    out["jax_row"] = {k: r[k] for k in ("argument_size_in_bytes",
+                                        "collective_total_bytes")}
     return out
 
 

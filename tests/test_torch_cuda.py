@@ -802,3 +802,82 @@ def test_cuda_dryrun_card_mode_routed(arch):
     assert card["collective_counts_per_device"]["all-gather"] > 0
     assert card["peak_bytes"] >= card["argument_size_in_bytes"]
     assert card["step_ms"] > 0
+
+
+def _dryrun_env():
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, "..", "src"), os.environ.get("PYTHONPATH", "")]))
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_sweep(tmp_path):
+    """``--all --device meta`` on both meshes under the card machine's
+    torch, one process each, side by side (~4 min): 80 of 80 rows pass
+    JAX's artifact gates (`check_rows`) and hold to JAX's rows
+    (`check_against_jax`, with JAX's rows as data:
+    tests/_dryrun_jax_rows.py): every row's collectives counted, its
+    argument bytes JAX's or the int32 scalar fewer, an MoE row at least one
+    all-reduce of its (tokens, d_model) output per MoE layer, the seven
+    rows of ROADMAP F5 at most 4× JAX's collective bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card machine's torch: the rows are its")
+    import json
+    import subprocess
+    import sys
+    from _dryrun_jax_rows import check_against_jax
+    from repro_torch.launch.dryrun import check_rows
+    procs = {}
+    for mesh in ("16x16", "2x16x16"):
+        out = tmp_path / f"{mesh}.json"
+        procs[mesh] = (out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--device", "meta", "--out", str(out)]
+            + (["--multi-pod"] if mesh == "2x16x16" else []),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env=_dryrun_env()))
+    for mesh, (out, proc) in procs.items():
+        _, err = proc.communicate(timeout=1200)
+        assert proc.returncode == 0, err[-4000:]
+        rows = json.loads(out.read_text())
+        check_rows(rows, 512 if mesh == "2x16x16" else 256)
+        check_against_jax(rows, mesh)
+
+
+BYTES = """
+import json, sys
+from repro_torch.launch.dryrun import dryrun_one
+arch, shape = sys.argv[1:3]
+meta = dryrun_one(arch, shape, device="meta")
+card = dryrun_one(arch, shape, device="cuda", steps=1)
+print(json.dumps({"meta": meta, "card": card}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+    ("qwen3-8b", "decode_32k"), ("qwen3-8b", "long_500k"),
+    ("granite-moe-1b-a400m", "train_4k"), ("mamba2-780m", "train_4k")])
+def test_cuda_dryrun_bytes_per_device(arch, shape):
+    """The abstract run's bytes per device (arguments + the peak of the
+    step's own storages, `StepMemory`) within 15% of the card's allocator
+    peak on the six combos the card runs (the MoE arch under global
+    routing, which fits); the card run's own count equals the abstract
+    one's (~30–80 s each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the dry-run's card mode")
+    import json
+    import subprocess
+    import sys
+    proc = subprocess.run([sys.executable, "-c", BYTES, arch, shape],
+                          capture_output=True, text=True, env=_dryrun_env(),
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    meta, card = out["meta"], out["card"]
+    assert card["argument_size_in_bytes"] == meta["argument_size_in_bytes"]
+    ratio = meta["bytes_per_device"] / card["peak_bytes"]
+    assert abs(ratio - 1) <= 0.15, (arch, shape, ratio)
+    assert card["bytes_per_device"] >= card["argument_size_in_bytes"] > 0

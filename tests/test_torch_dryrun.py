@@ -9,13 +9,18 @@
   mesh × arch × input shape × layout; a second prints rank 0's local
   shapes of the port's ``meta`` DTensors on fake process groups of 256
   and 512 ranks (tests/_dryrun_shards.py). They must be equal, and so must
-  ``variant_for`` and ``_active_params``.
+  ``variant_for`` and ``_active_params``. The JAX side also lowers and
+  compiles one combo, whose argument and collective bytes must equal JAX's
+  rows as the port's tests have them (tests/_dryrun_jax_rows.py, data for
+  the card, which has no JAX).
 - The PipeGCN dry-run at reduced sizes on the production world sizes
   (fake groups, in a subprocess): boundary collectives equal
   ``expected_boundary_collectives`` (2 fused, 2L-1 per layer), the bytes
   handed to the exchange equal JAX's wire-byte formula, and the
   split-phase events place each exchange between two phase launches.
-- ``dryrun_one`` abstract (``meta``) through its CLI, in a subprocess.
+- ``dryrun_one`` abstract (``meta``) through its CLI, in a subprocess:
+  its row passes JAX's artifact gates (`check_row`) and carries JAX's
+  memory keys.
 
 Every fake process group is started in a subprocess: one left in an xdist
 worker would change the world size every later test there sees.
@@ -29,11 +34,14 @@ import pytest
 from jax.sharding import PartitionSpec
 from torch.utils._pytree import tree_flatten_with_path
 
+import _dryrun_shards
 import _torch_threads  # noqa: F401
+from _dryrun_jax_rows import ARGUMENT_BYTES, COLLECTIVE_BYTES
 from repro.configs import ARCH_IDS
 from repro.configs import get_arch as jax_arch
 from repro.models.model import LM as JaxLM
 from repro_torch.configs import get_arch
+from repro_torch.launch.dryrun import check_row
 from repro_torch.models.model import LM
 from repro_torch.models.shardctx import (NamedSharding, P, constrain,
                                          placements, sharding_rules)
@@ -88,6 +96,10 @@ def test_shard_shapes_equal_jax():
         assert proc.returncode == 0, stderr[-4000:]
         out[side] = json.loads(stdout.strip().splitlines()[-1])
     jax_out, port = out["jax"], out["torch"]
+    key = _dryrun_shards.JAX_ROW
+    assert jax_out.pop("jax_row") == {
+        "argument_size_in_bytes": ARGUMENT_BYTES["16x16"][key],
+        "collective_total_bytes": COLLECTIVE_BYTES["16x16"][key]}
     # 2 meshes × 10 archs × 4 shapes × (default, fsdp; opt for 2 MoE archs)
     assert sum(k[0] in "01" for k in jax_out) == 2 * 4 * (10 * 2 + 2)
     assert port.keys() == jax_out.keys()
@@ -212,3 +224,9 @@ def test_dryrun_cli_abstract(tmp_path):
     assert r["argument_size_in_bytes"] > 0
     assert r["bottleneck"] in ("compute", "memory", "collective")
     assert "step_ms" not in r and "peak_bytes" not in r
+    # JAX's artifact gates, and its memory keys: arguments + temporaries
+    check_row(r, 256)
+    assert r["unused_argument_leaves"] == 0
+    assert r["bytes_per_device"] == (r["argument_size_in_bytes"]
+                                     + r["temp_size_in_bytes"])
+    assert r["temp_size_in_bytes"] > 0
