@@ -947,22 +947,28 @@ KERNELS = ("spmm", "spmm_t", "spmm_fused", "spmm_fused_t", "spmm_phased",
            "spmm_t_phased", "flash_attention")
 
 
-def kernel_wrappers() -> dict:
-    """kernel name -> its wrapper, whose `launches` attribute counts the
-    wrapper's kernel launches."""
-    from repro_torch.kernels import flash_attention, gcn_spmm
-    out = {k: getattr(gcn_spmm, k) for k in KERNELS if k != "flash_attention"}
-    out["flash_attention"] = flash_attention.flash_attention
-    return out
+def launch_counters() -> dict:
+    """kernel name -> the `repro_torch.spans` counter of its wrapper's
+    kernel launches."""
+    return {k: ("flash_attention." if k == "flash_attention" else "gcn_spmm.")
+            + k for k in KERNELS}
+
+
+_LAUNCHES_AT_RESET: dict = {}
 
 
 def reset_launches():
-    for wrapper in kernel_wrappers().values():
-        wrapper.launches = 0
+    """Start counting launches from here (`read_launches` gives the
+    launches since)."""
+    from repro_torch import spans
+    _LAUNCHES_AT_RESET.update({k: spans.counter(c)
+                               for k, c in launch_counters().items()})
 
 
 def read_launches() -> dict:
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    from repro_torch import spans
+    return {k: spans.counter(c) - _LAUNCHES_AT_RESET.get(k, 0)
+            for k, c in launch_counters().items()}
 
 
 def expected_launches(model, topo, steps: int, evals: int) -> dict:
@@ -1029,21 +1035,20 @@ def train_run(pipeline, agg, order, pipe=None, what=""):
     before and read just after; the counts must equal expected_launches.
     `what` names the pipe in the log lines."""
     import dataclasses
+    from repro_torch import spans
     from repro_torch.core import PipeConfig, PipeGCN, train_pipegcn
-    from repro_torch.core.pipegcn import SimBackend
     from repro_torch.core.trace_utils import expected_boundary_collectives
     name = graph_name(pipeline)
     pipe = PipeConfig.named("pipegcn") if pipe is None else pipe
     tag = f"{name} {agg}/{order}{what}"
     mc, lr = _model_config(pipeline, agg, order)
     reset_launches()
-    SimBackend.side_copies = 0
     res = train_pipegcn(pipeline, mc, pipe,
                         epochs=EPOCHS, lr=lr, seed=0, eval_every=EVAL_EVERY,
                         log=lambda s: log(f"train {tag}: {s}"),
                         device="cuda")
     launches = read_launches()
-    copies = SimBackend.side_copies
+    copies = spans.last_run()["counters"].get("exchange.side_copies", 0)
     model = PipeGCN(mc, pipe, split=pipeline.split_spec())
     n_eval = len(res.history["epoch"])
     expect = expected_launches(model, pipeline.topo, EPOCHS, n_eval)

@@ -2,4 +2,4 @@
 port"). Imports torch and numpy only: nothing of JAX or of ``repro``."""
 
 __all__ = ["analysis", "configs", "core", "data", "device", "graph", "kernels",
-           "launch", "models", "optim"]
+           "launch", "models", "optim", "spans"]

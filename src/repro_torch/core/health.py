@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import spans
 from repro_torch.optim.optimizers import global_norm
 
 
@@ -61,7 +62,11 @@ def _finite_tree(tree) -> torch.Tensor:
     ok = torch.tensor(True)
     for leaf in _leaves(tree):
         if leaf.is_floating_point():
-            ok = ok.to(leaf.device) & torch.all(torch.isfinite(leaf))
+            if ok.device != leaf.device:
+                # a blocking upload from the host: it synchronizes the stream
+                with spans.sync("finite_upload"):
+                    ok = ok.to(leaf.device)
+            ok = ok & torch.all(torch.isfinite(leaf))
     return ok
 
 
@@ -97,4 +102,6 @@ def tree_select(pred, on_true, on_false):
                              for a, b in zip(on_true, on_false))
     if isinstance(on_true, torch.Tensor):
         return torch.where(pred, on_true, on_false)
-    return on_true if bool(pred) else on_false
+    with spans.sync("select"):
+        taken = bool(pred)
+    return on_true if taken else on_false

@@ -70,6 +70,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.codec import (fused_exchange_encoded, make_codec,
                                     start_fused_exchange_encoded)
 from repro_torch.core.config import ModelConfig, PipeConfig
@@ -427,16 +428,16 @@ class _ExchangeBase:
 class SimBackend(_ExchangeBase):
     """Partitions as the leading axis on a single device: the exchanges
     are transposes, and the reductions over partitions (weight gradients,
-    loss) are sums over the leading axis. `side_copies` counts the
-    exchange copies started on a side CUDA stream."""
-
-    side_copies = 0
+    loss) are sums over the leading axis. The counter
+    ``exchange.side_copies`` counts the exchange copies started on a side
+    CUDA stream; ``exchange.bytes`` the bytes handed to every exchange."""
 
     def __init__(self):
         self._side = None       # the side CUDA stream, made at first use
 
     def exchange(self, s):
         # s: (P_sender, P_receiver, slot, F); R[i, j] = S[j, i]
+        spans.count("exchange.bytes", s.numel() * s.element_size())
         return s.transpose(0, 1)
 
     def start_exchange(self, s):
@@ -446,6 +447,7 @@ class SimBackend(_ExchangeBase):
         completes here."""
         if not s.is_cuda:
             return _Done(self.exchange(s))
+        spans.count("exchange.bytes", s.numel() * s.element_size())
         compute = torch.cuda.current_stream(s.device)
         if self._side is None:
             self._side = torch.cuda.Stream(s.device)   # from torch's pool
@@ -457,11 +459,12 @@ class SimBackend(_ExchangeBase):
         ready.record(compute)
         side.wait_event(ready)
         with torch.cuda.stream(side):
-            recv.copy_(s.transpose(0, 1))
+            with spans.span("repro.exchange", device=True):
+                recv.copy_(s.transpose(0, 1))
             done = torch.cuda.Event()
             done.record(side)
         s.record_stream(side)   # s's memory is not reused before the copy
-        SimBackend.side_copies += 1
+        spans.count("exchange.side_copies")
         return _SideStreamCopy(recv, done)
 
     def psum(self, x):
@@ -535,10 +538,12 @@ class SpmdBackend(_ExchangeBase):
     def exchange(self, s):
         # s: (n_local, P, slot, F); R[l, j] = payload of global partition
         # j to this rank's partition l
+        spans.count("exchange.bytes", s.numel() * s.element_size())
         _, out, finish = self._a2a(s, async_op=False)
         return finish(out)
 
     def start_exchange(self, s):
+        spans.count("exchange.bytes", s.numel() * s.element_size())
         work, out, finish = self._a2a(s, async_op=True)
         return _Collective(work, out, finish)
 
@@ -570,8 +575,9 @@ class SpmdBackend(_ExchangeBase):
         partition sees does not depend on how partitions map onto ranks.
         Every rank draws the same base seed from its copy of `generator`."""
         dev = generator.device
-        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                 device=dev))
+        with spans.sync("dropout_seed"):
+            base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=dev))
         keep = torch.stack([
             torch.rand(tuple(shape[1:]), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(
@@ -1000,75 +1006,82 @@ class PipeGCN:
                                     pids, guard)
             return wire
 
-        def ship_feat(ell, payload):
-            """Encode one layer's (n, P, slot, pw) feature send, exchange it
-            (or queue it for the fused exchange), decode, and return the
-            halo the layer consumes this step."""
-            wire = encode(ell, payload, FWD)
-            if fuse:
-                # Stale mode: the exchange result is consumed only at t+1,
-                # so defer the wire into the packed exchange and read this
-                # step's halo straight from the pipeline state.
-                pending_feat.append(wire)
-                feat_dtypes.append(payload.dtype)
-                return self._consume_buffer(buffers["feat"][ell])
-            fresh, vrows = land(ell, backend.exchange(wire), payload.dtype)
-            if pipe.stale:
-                new_feat[ell] = self._update_buffer_guarded(
-                    buffers["feat"][ell], fresh, pipe.smooth_feat, vrows)
-                return self._consume_buffer(buffers["feat"][ell])
-            new_feat[ell] = buffers["feat"][ell]
-            return fresh
+        def ship_feat(ell, rows):
+            """Gather and encode one layer's (n, P, slot, pw) feature send
+            from its (n, max_inner, pw) `rows`, exchange it (or queue it for
+            the fused exchange), decode, and return the halo the layer
+            consumes this step."""
+            with spans.span("repro.exchange", device=True):
+                payload = _gather_send(rows, send_idx, send_mask)
+                wire = encode(ell, payload, FWD)
+                if fuse:
+                    # Stale mode: the exchange result is consumed only at
+                    # t+1, so defer the wire into the packed exchange and
+                    # read this step's halo straight from the pipeline state.
+                    pending_feat.append(wire)
+                    feat_dtypes.append(payload.dtype)
+                    return self._consume_buffer(buffers["feat"][ell])
+                fresh, vrows = land(ell, backend.exchange(wire), payload.dtype)
+                if pipe.stale:
+                    new_feat[ell] = self._update_buffer_guarded(
+                        buffers["feat"][ell], fresh, pipe.smooth_feat, vrows)
+                    return self._consume_buffer(buffers["feat"][ell])
+                new_feat[ell] = buffers["feat"][ell]
+                return fresh
 
         for ell in range(L):
-            fin, _ = dims[ell]
-            w, b = params[f"w{ell}"], params[f"b{ell}"]
-            dm = None
-            if dropout_rate > 0.0:
-                dm = backend.dropout_mask(generator, dropout_rate,
-                                          (n, combined, fin))
-            act = ell < L - 1
-            fuse_relu = act and not train
-            if ell in sliced:
-                # Sliced boundary (order forced transform-first): transform
-                # the inner rows first and ship the fout-wide rows; the
-                # consumer aggregates already-transformed halo rows. Dropout
-                # applies owner-side before the transform (a halo row
-                # carries its owner's inner-row mask), which equals the
-                # unsliced schedule at dropout 0.
-                w1 = w[:fin] if sage else w
-                h_in = h * dm[:, :max_inner] if dm is not None else h
-                hw = h_in @ w1
-                halo = ship_feat(ell, _gather_send(hw, send_idx, send_mask))
-                u = self.engine.spmm(tslice, torch.cat([hw, halo], dim=1),
-                                     max_inner) + b
-                if sage:
-                    u = u + h_in @ w[fin:]
-                if fuse_relu:
-                    u = torch.relu(u)
-                # residual slot 0 holds the masked inner rows: the sliced
-                # backward needs h_in, never the full comb
-                residuals.append((h_in, None, u, dm))
-            else:
-                halo = ship_feat(ell, _gather_send(h, send_idx, send_mask))
-                u, (comb, z) = self._layer_forward(
-                    tslice, w, b, h, halo, dm, order=orders[ell],
-                    fuse_relu=fuse_relu, with_z=train)
-                residuals.append((comb, z, u, dm))
-            h = torch.relu(u) if act and not fuse_relu else u
+            with spans.span(f"repro.step.fwd.L{ell}"):
+                fin, _ = dims[ell]
+                w, b = params[f"w{ell}"], params[f"b{ell}"]
+                dm = None
+                if dropout_rate > 0.0:
+                    dm = backend.dropout_mask(generator, dropout_rate,
+                                              (n, combined, fin))
+                act = ell < L - 1
+                fuse_relu = act and not train
+                if ell in sliced:
+                    # Sliced boundary (order forced transform-first): transform
+                    # the inner rows first and ship the fout-wide rows; the
+                    # consumer aggregates already-transformed halo rows. Dropout
+                    # applies owner-side before the transform (a halo row
+                    # carries its owner's inner-row mask), which equals the
+                    # unsliced schedule at dropout 0.
+                    w1 = w[:fin] if sage else w
+                    h_in = h * dm[:, :max_inner] if dm is not None else h
+                    hw = h_in @ w1
+                    halo = ship_feat(ell, hw)
+                    u = self.engine.spmm(tslice, torch.cat([hw, halo], dim=1),
+                                         max_inner) + b
+                    if sage:
+                        u = u + h_in @ w[fin:]
+                    if fuse_relu:
+                        u = torch.relu(u)
+                    # residual slot 0 holds the masked inner rows: the sliced
+                    # backward needs h_in, never the full comb
+                    residuals.append((h_in, None, u, dm))
+                else:
+                    halo = ship_feat(ell, h)
+                    u, (comb, z) = self._layer_forward(
+                        tslice, w, b, h, halo, dm, order=orders[ell],
+                        fuse_relu=fuse_relu, with_z=train)
+                    residuals.append((comb, z, u, dm))
+                h = torch.relu(u) if act and not fuse_relu else u
 
         if fuse:
             # ONE exchange for all L layers' boundary features; the results
             # land in the t+1 buffers. Decoding restores each layer's own
             # pre-pack dtype.
-            recvs = fused_exchange_encoded(backend, pending_feat)
+            with spans.span("repro.exchange", device=True):
+                recvs = fused_exchange_encoded(backend, pending_feat)
             for ell, recv in enumerate(recvs):
-                fresh, vrows = land(ell, recv, feat_dtypes[ell])
-                new_feat[ell] = self._update_buffer_guarded(
-                    buffers["feat"][ell], fresh, pipe.smooth_feat, vrows)
+                with spans.span("repro.exchange", device=True):
+                    fresh, vrows = land(ell, recv, feat_dtypes[ell])
+                    new_feat[ell] = self._update_buffer_guarded(
+                        buffers["feat"][ell], fresh, pipe.smooth_feat, vrows)
 
         logits = h
-        loss, dlogits = self._loss(backend, logits, data)
+        with spans.span("repro.step.loss"):
+            loss, dlogits = self._loss(backend, logits, data)
         if not train:
             return loss, logits, None, None
 
@@ -1105,65 +1118,69 @@ class PipeGCN:
             under the identity codec, the compute dtype after a lossy
             wire."""
             dtype = db.dtype if codecs[ell].name == "f32" else compute_dtype
-            wire = encode(ell, db, BWD)
-            if fuse:
-                pending_grad.append((ell, wire, dtype))
-                return self._consume_buffer(buffers["grad"][ell])
-            fresh, vrows = land_grad(ell, backend.exchange(wire), dtype)
-            if pipe.stale:
-                new_grad[ell] = self._update_buffer_guarded(
-                    buffers["grad"][ell], fresh, pipe.smooth_grad, vrows)
-                return self._consume_buffer(buffers["grad"][ell])
-            new_grad[ell] = buffers["grad"][ell]
-            return fresh
+            with spans.span("repro.exchange", device=True):
+                wire = encode(ell, db, BWD)
+                if fuse:
+                    pending_grad.append((ell, wire, dtype))
+                    return self._consume_buffer(buffers["grad"][ell])
+                fresh, vrows = land_grad(ell, backend.exchange(wire), dtype)
+                if pipe.stale:
+                    new_grad[ell] = self._update_buffer_guarded(
+                        buffers["grad"][ell], fresh, pipe.smooth_grad, vrows)
+                    return self._consume_buffer(buffers["grad"][ell])
+                new_grad[ell] = buffers["grad"][ell]
+                return fresh
 
         j = dlogits
         for ell in reversed(range(L)):
-            comb, z, u, dm = residuals[ell]
-            fin, fout = dims[ell]
-            w = params[f"w{ell}"]
-            du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
-            grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
-            if ell in sliced:
-                # Sliced backward (transform-first, fout-wide exchange): ship
-                # the pre-w1 halo rows of dhw = Pᵀ·du to their owners and
-                # fold the owner contributions into the inner rows before
-                # the weight gradient and w1ᵀ; the scatter commutes with
-                # both, so vanilla mode equals the unsliced step.
-                w1 = w[:fin] if sage else w
-                h_in = comb      # residual slot 0: the masked inner rows
-                dhw = self.engine.spmm_t(tslice, du, combined)
-                db = dhw[:, max_inner:].reshape(n, P, topo.slot, fout)
-                dhw_eff = dhw[:, :max_inner] + ship_grad(ell, db, j.dtype)
-                gw = h_in.transpose(1, 2) @ dhw_eff
-                if sage:
-                    gw = torch.cat([gw, h_in.transpose(1, 2) @ du], dim=1)
+            with spans.span(f"repro.step.bwd.L{ell}"):
+                comb, z, u, dm = residuals[ell]
+                fin, fout = dims[ell]
+                w = params[f"w{ell}"]
+                du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
+                grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
+                if ell in sliced:
+                    # Sliced backward (transform-first, fout-wide exchange): ship
+                    # the pre-w1 halo rows of dhw = Pᵀ·du to their owners and
+                    # fold the owner contributions into the inner rows before
+                    # the weight gradient and w1ᵀ; the scatter commutes with
+                    # both, so vanilla mode equals the unsliced step.
+                    w1 = w[:fin] if sage else w
+                    h_in = comb      # residual slot 0: the masked inner rows
+                    dhw = self.engine.spmm_t(tslice, du, combined)
+                    db = dhw[:, max_inner:].reshape(n, P, topo.slot, fout)
+                    dhw_eff = dhw[:, :max_inner] + ship_grad(ell, db, j.dtype)
+                    gw = h_in.transpose(1, 2) @ dhw_eff
+                    if sage:
+                        gw = torch.cat([gw, h_in.transpose(1, 2) @ du], dim=1)
+                    grads[f"w{ell}"] = backend.psum(gw)
+                    j = dhw_eff @ w1.T
+                    if sage:
+                        j = j + du @ w[fin:].T
+                    if dm is not None:
+                        j = j * dm[:, :max_inner]
+                    continue
+                need_dcomb = ell > 0    # Alg. 1 stops the backward at layer 0
+                gw, dh_local, db = self._layer_backward(
+                    tslice, w, du, comb, z, dm, max_inner,
+                    order=orders[ell], need_dcomb=need_dcomb)
                 grads[f"w{ell}"] = backend.psum(gw)
-                j = dhw_eff @ w1.T
-                if sage:
-                    j = j + du @ w[fin:].T
-                if dm is not None:
-                    j = j * dm[:, :max_inner]
-                continue
-            need_dcomb = ell > 0    # Alg. 1 stops the backward at layer 0
-            gw, dh_local, db = self._layer_backward(
-                tslice, w, du, comb, z, dm, max_inner,
-                order=orders[ell], need_dcomb=need_dcomb)
-            grads[f"w{ell}"] = backend.psum(gw)
-            if ell == 0:
-                new_grad[0] = buffers["grad"][0]
-                break
-            db = db.reshape(n, P, topo.slot, fin)
-            j = dh_local + ship_grad(ell, db, j.dtype)
+                if ell == 0:
+                    new_grad[0] = buffers["grad"][0]
+                    break
+                db = db.reshape(n, P, topo.slot, fin)
+                j = dh_local + ship_grad(ell, db, j.dtype)
 
         if fuse and pending_grad:
             # ONE exchange for all L-1 boundary-gradient sends.
-            recvs = fused_exchange_encoded(backend,
-                                           [w_ for _, w_, _ in pending_grad])
+            with spans.span("repro.exchange", device=True):
+                recvs = fused_exchange_encoded(
+                    backend, [w_ for _, w_, _ in pending_grad])
             for (ell, _, dtype), recv in zip(pending_grad, recvs):
-                fresh, vrows = land_grad(ell, recv, dtype)
-                new_grad[ell] = self._update_buffer_guarded(
-                    buffers["grad"][ell], fresh, pipe.smooth_grad, vrows)
+                with spans.span("repro.exchange", device=True):
+                    fresh, vrows = land_grad(ell, recv, dtype)
+                    new_grad[ell] = self._update_buffer_guarded(
+                        buffers["grad"][ell], fresh, pipe.smooth_grad, vrows)
 
         new_buffers = {"feat": tuple(new_feat), "grad": tuple(new_grad)}
         if guard:
@@ -1243,101 +1260,107 @@ class PipeGCN:
         pending_feat = []
         feat_dtypes = []
 
-        def start_feat(ell, payload):
-            """Start the exchange of layer ell's encoded payload; returns
-            (handle, the payload's dtype)."""
-            return (backend.start_exchange(codecs[ell].encode(payload)),
-                    payload.dtype)
-
         def finish_feat(ell, started):
             """Wait for layer ell's exchange; returns the halo it consumes
             (the fresh payload in vanilla mode, the stale state else)."""
             handle, dtype = started
-            fresh = land(ell, handle.wait(), dtype)
-            if pipe.stale:
-                new_feat[ell] = self._update_buffer(
-                    buffers["feat"][ell], fresh, pipe.smooth_feat)
-                return self._consume_buffer(buffers["feat"][ell])
-            new_feat[ell] = buffers["feat"][ell]
-            return fresh
+            with spans.span("repro.exchange", device=True):
+                fresh = land(ell, handle.wait(), dtype)
+                if pipe.stale:
+                    new_feat[ell] = self._update_buffer(
+                        buffers["feat"][ell], fresh, pipe.smooth_feat)
+                    return self._consume_buffer(buffers["feat"][ell])
+                new_feat[ell] = buffers["feat"][ell]
+                return fresh
 
-        def defer_feat(ell, payload):
-            """Fused schedule: queue the payload, start the packed exchange
-            once the last one is in; returns the stale halo."""
+        def send_feat(ell, payload):
+            """Encode layer ell's payload and start its exchange, or under
+            the fused schedule queue it and start the packed exchange once
+            the last one is in. Returns (handle, the payload's dtype), None
+            when fused, and, fused, the stale halo the layer consumes."""
+            if not fuse:
+                return (backend.start_exchange(codecs[ell].encode(payload)),
+                        payload.dtype), None
             pending_feat.append(codecs[ell].encode(payload))
             feat_dtypes.append(payload.dtype)
             if ell == L - 1:
                 flight["feat"] = start_fused_exchange_encoded(backend,
                                                               pending_feat)
-            return self._consume_buffer(buffers["feat"][ell])
+            return None, self._consume_buffer(buffers["feat"][ell])
 
         flight = {}
         # -- forward -------------------------------------------------------
         h = data.x
-        payload = _gather_send(h, send_idx, send_mask)
-        if fuse:
-            halo = defer_feat(0, payload)
-        else:
-            halo = finish_feat(0, start_feat(0, payload))
+        with spans.span("repro.exchange", device=True):
+            started, halo = send_feat(
+                0, _gather_send(h, send_idx, send_mask))
+        if started is not None:
+            halo = finish_feat(0, started)
 
         for ell in range(L):
-            fin, _ = dims[ell]
-            w, b = params[f"w{ell}"], params[f"b{ell}"]
-            w1 = w[:fin] if sage else w
-            dm = None
-            if dropout_rate > 0.0:
-                dm = backend.dropout_mask(generator, dropout_rate,
-                                          (n, combined, fin))
-            comb = torch.cat([h, halo], dim=1)
-            if dm is not None:
-                comb = comb * dm
-            tf = orders[ell] == "transform-first"
-            src = comb @ w1 if tf else comb
-            act = ell < L - 1
+            with spans.span(f"repro.step.fwd.L{ell}"):
+                fin, _ = dims[ell]
+                w, b = params[f"w{ell}"], params[f"b{ell}"]
+                w1 = w[:fin] if sage else w
+                dm = None
+                if dropout_rate > 0.0:
+                    dm = backend.dropout_mask(generator, dropout_rate,
+                                              (n, combined, fin))
+                comb = torch.cat([h, halo], dim=1)
+                if dm is not None:
+                    comb = comb * dm
+                tf = orders[ell] == "transform-first"
+                src = comb @ w1 if tf else comb
+                act = ell < L - 1
 
-            # boundary phase: rows [rt, max_inner) of raw_b are valid
-            raw_b = spmm_phase(src, "boundary")
-            tail_b = raw_b[:, rt:]
-            u_bt = tail_b + b if tf else tail_b @ w1 + b
-            if sage:
-                u_bt = u_bt + comb[:, rt:max_inner] @ w[fin:]
-            h_bt = torch.relu(u_bt) if act else u_bt
+                # boundary phase: rows [rt, max_inner) of raw_b are valid
+                raw_b = spmm_phase(src, "boundary")
+                tail_b = raw_b[:, rt:]
+                u_bt = tail_b + b if tf else tail_b @ w1 + b
+                if sage:
+                    u_bt = u_bt + comb[:, rt:max_inner] @ w[fin:]
+                h_bt = torch.relu(u_bt) if act else u_bt
 
-            # the next layer's payload rows all lie in the tail just made:
-            # start its exchange before the interior phase
-            inflight = None
-            if ell + 1 < L:
-                payload = _gather_send_tail(h_bt, send_idx, send_mask, rt)
-                if fuse:
-                    halo = defer_feat(ell + 1, payload)
+                # the next layer's payload rows all lie in the tail just made:
+                # start its exchange before the interior phase
+                inflight = None
+                if ell + 1 < L:
+                    with spans.span("repro.exchange", device=True):
+                        inflight, stale_halo = send_feat(
+                            ell + 1, _gather_send_tail(h_bt, send_idx,
+                                                       send_mask, rt))
+                    if fuse:
+                        halo = stale_halo
+
+                # interior phase, while the exchange is in flight
+                raw_i = spmm_phase(src, "interior")
+                head_i = raw_i[:, :rt]
+                if tf:
+                    u_ih = head_i + b
+                    z = None
                 else:
-                    inflight = start_feat(ell + 1, payload)
-
-            # interior phase, while the exchange is in flight
-            raw_i = spmm_phase(src, "interior")
-            head_i = raw_i[:, :rt]
-            if tf:
-                u_ih = head_i + b
-                z = None
-            else:
-                u_ih = head_i @ w1 + b
-                z = torch.cat([head_i, tail_b], dim=1) if train else None
-            if sage:
-                u_ih = u_ih + comb[:, :rt] @ w[fin:]
-            if inflight is not None:
-                halo = finish_feat(ell + 1, inflight)
-            u = torch.cat([u_ih, u_bt], dim=1)
-            residuals.append((comb, z, u, dm))
-            h = torch.cat([torch.relu(u_ih), h_bt], dim=1) if act else u
+                    u_ih = head_i @ w1 + b
+                    z = torch.cat([head_i, tail_b], dim=1) if train else None
+                if sage:
+                    u_ih = u_ih + comb[:, :rt] @ w[fin:]
+                if inflight is not None:
+                    halo = finish_feat(ell + 1, inflight)
+                u = torch.cat([u_ih, u_bt], dim=1)
+                residuals.append((comb, z, u, dm))
+                h = torch.cat([torch.relu(u_ih), h_bt], dim=1) if act else u
 
         if fuse:
-            for ell, recv in enumerate(flight.pop("feat").wait()):
-                new_feat[ell] = self._update_buffer(
-                    buffers["feat"][ell], land(ell, recv, feat_dtypes[ell]),
-                    pipe.smooth_feat)
+            with spans.span("repro.exchange", device=True):
+                recvs = flight.pop("feat").wait()
+            for ell, recv in enumerate(recvs):
+                with spans.span("repro.exchange", device=True):
+                    new_feat[ell] = self._update_buffer(
+                        buffers["feat"][ell],
+                        land(ell, recv, feat_dtypes[ell]), pipe.smooth_feat)
 
         logits = h
-        loss, dlogits = self._loss(backend, logits, data)
+        with spans.span("repro.step.loss"):
+            loss, dlogits = self._loss(backend, logits, data)
         if not train:
             return loss, logits, None, None
 
@@ -1356,91 +1379,97 @@ class PipeGCN:
 
         j = dlogits
         for ell in reversed(range(L)):
-            comb, z, u, dm = residuals[ell]
-            fin, _ = dims[ell]
-            w = params[f"w{ell}"]
-            w1 = w[:fin] if sage else w
-            du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
-            grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
-            if ell == 0:
-                # Alg. 1 stops the backward at layer 0: weight gradient
-                # only, through the unsplit per-layer backward
-                gw, _, _ = self._layer_backward(
-                    tslice, w, du, comb, z, dm, max_inner, order=orders[0],
-                    need_dcomb=False)
-                grads["w0"] = backend.psum(gw)
-                new_grad[0] = buffers["grad"][0]
-                break
+            with spans.span(f"repro.step.bwd.L{ell}"):
+                comb, z, u, dm = residuals[ell]
+                fin, _ = dims[ell]
+                w = params[f"w{ell}"]
+                w1 = w[:fin] if sage else w
+                du = j if ell == L - 1 else j * (u > 0).to(j.dtype)
+                grads[f"b{ell}"] = backend.psum(du.sum(dim=1))
+                if ell == 0:
+                    # Alg. 1 stops the backward at layer 0: weight gradient
+                    # only, through the unsplit per-layer backward
+                    gw, _, _ = self._layer_backward(
+                        tslice, w, du, comb, z, dm, max_inner, order=orders[0],
+                        need_dcomb=False)
+                    grads["w0"] = backend.psum(gw)
+                    new_grad[0] = buffers["grad"][0]
+                    break
 
-            tf = orders[ell] == "transform-first"
-            # one dense op ahead of both phases under aggregate-first
-            # (δhw = du·w1ᵀ); transform-first transposes du itself and
-            # applies w1ᵀ per phase (the pre-w1 pieces feed the weight grad)
-            src_t = du if tf else du @ w1.T
-            if sage:
-                sage_t = du @ w[fin:].T
+                tf = orders[ell] == "transform-first"
+                # one dense op ahead of both phases under aggregate-first
+                # (δhw = du·w1ᵀ); transform-first transposes du itself and
+                # applies w1ᵀ per phase (the pre-w1 pieces feed the weight grad)
+                src_t = du if tf else du @ w1.T
+                if sage:
+                    sage_t = du @ w[fin:].T
 
-            # boundary phase: comb rows [ct, combined) valid
-            raw_tb = spmm_t_phase(src_t, "boundary")
-            dhw_b = raw_tb[:, ct:]
-            d_bt = dhw_b @ w1.T if tf else dhw_b
-            if sage:
-                d_bt = torch.cat([d_bt[:, :max_inner - ct]
-                                  + sage_t[:, ct:],
-                                  d_bt[:, max_inner - ct:]], dim=1)
-            if dm is not None:
-                d_bt = d_bt * dm[:, ct:]
+                # boundary phase: comb rows [ct, combined) valid
+                raw_tb = spmm_t_phase(src_t, "boundary")
+                dhw_b = raw_tb[:, ct:]
+                d_bt = dhw_b @ w1.T if tf else dhw_b
+                if sage:
+                    d_bt = torch.cat([d_bt[:, :max_inner - ct]
+                                      + sage_t[:, ct:],
+                                      d_bt[:, max_inner - ct:]], dim=1)
+                if dm is not None:
+                    d_bt = d_bt * dm[:, ct:]
 
-            # the gradient send is the halo rows of the boundary phase,
-            # decoded in the payload's dtype under the identity codec and
-            # in the compute dtype after a lossy wire
-            db = d_bt[:, max_inner - ct:].reshape(n, P, topo.slot, fin)
-            db_dtype = db.dtype if codecs[ell].name == "f32" else j.dtype
-            wire = codecs[ell].encode(db)
-            inflight = None
-            if fuse:
-                pending_grad.append((ell, wire, db_dtype))
-                contrib = self._consume_buffer(buffers["grad"][ell])
-                if ell == 1:
-                    flight["grad"] = start_fused_exchange_encoded(
-                        backend, [w_ for _, w_, _ in pending_grad])
-            else:
-                inflight = backend.start_exchange(wire)
+                # the gradient send is the halo rows of the boundary phase,
+                # decoded in the payload's dtype under the identity codec and
+                # in the compute dtype after a lossy wire
+                db = d_bt[:, max_inner - ct:].reshape(n, P, topo.slot, fin)
+                db_dtype = db.dtype if codecs[ell].name == "f32" else j.dtype
+                inflight = None
+                with spans.span("repro.exchange", device=True):
+                    wire = codecs[ell].encode(db)
+                    if fuse:
+                        pending_grad.append((ell, wire, db_dtype))
+                        contrib = self._consume_buffer(buffers["grad"][ell])
+                        if ell == 1:
+                            flight["grad"] = start_fused_exchange_encoded(
+                                backend, [w_ for _, w_, _ in pending_grad])
+                    else:
+                        inflight = backend.start_exchange(wire)
 
-            # interior phase, while the exchange is in flight
-            raw_ti = spmm_t_phase(src_t, "interior")
-            dhw_i = raw_ti[:, :ct]
-            if tf:
-                d_ih = dhw_i @ w1.T
-                dhw_full = torch.cat([dhw_i, dhw_b], dim=1)
-                gw = comb.transpose(1, 2) @ dhw_full
-            else:
-                d_ih = dhw_i
-                gw = z.transpose(1, 2) @ du
-            if sage:
-                gw = torch.cat(
-                    [gw, comb[:, :max_inner].transpose(1, 2) @ du], dim=1)
-                d_ih = d_ih + sage_t[:, :ct]
-            if dm is not None:
-                d_ih = d_ih * dm[:, :ct]
-            grads[f"w{ell}"] = backend.psum(gw)
-            if inflight is not None:
-                fresh = land_grad(ell, inflight.wait(), db_dtype)
-                if pipe.stale:
-                    contrib = self._consume_buffer(buffers["grad"][ell])
-                    new_grad[ell] = self._update_buffer(
-                        buffers["grad"][ell], fresh, pipe.smooth_grad)
+                # interior phase, while the exchange is in flight
+                raw_ti = spmm_t_phase(src_t, "interior")
+                dhw_i = raw_ti[:, :ct]
+                if tf:
+                    d_ih = dhw_i @ w1.T
+                    dhw_full = torch.cat([dhw_i, dhw_b], dim=1)
+                    gw = comb.transpose(1, 2) @ dhw_full
                 else:
-                    contrib = fresh
-                    new_grad[ell] = buffers["grad"][ell]
-            j = torch.cat([d_ih, d_bt[:, :max_inner - ct]], dim=1) + contrib
+                    d_ih = dhw_i
+                    gw = z.transpose(1, 2) @ du
+                if sage:
+                    gw = torch.cat(
+                        [gw, comb[:, :max_inner].transpose(1, 2) @ du], dim=1)
+                    d_ih = d_ih + sage_t[:, :ct]
+                if dm is not None:
+                    d_ih = d_ih * dm[:, :ct]
+                grads[f"w{ell}"] = backend.psum(gw)
+                if inflight is not None:
+                    with spans.span("repro.exchange", device=True):
+                        fresh = land_grad(ell, inflight.wait(), db_dtype)
+                        if pipe.stale:
+                            contrib = self._consume_buffer(
+                                buffers["grad"][ell])
+                            new_grad[ell] = self._update_buffer(
+                                buffers["grad"][ell], fresh, pipe.smooth_grad)
+                        else:
+                            contrib = fresh
+                            new_grad[ell] = buffers["grad"][ell]
+                j = torch.cat([d_ih, d_bt[:, :max_inner - ct]], dim=1) + contrib
 
         if fuse and pending_grad:
-            recvs = flight.pop("grad").wait()
+            with spans.span("repro.exchange", device=True):
+                recvs = flight.pop("grad").wait()
             for (ell, _, dtype), recv in zip(pending_grad, recvs):
-                new_grad[ell] = self._update_buffer(
-                    buffers["grad"][ell], land_grad(ell, recv, dtype),
-                    pipe.smooth_grad)
+                with spans.span("repro.exchange", device=True):
+                    new_grad[ell] = self._update_buffer(
+                        buffers["grad"][ell], land_grad(ell, recv, dtype),
+                        pipe.smooth_grad)
 
         return loss, logits, grads, {"feat": tuple(new_feat),
                                      "grad": tuple(new_grad)}

@@ -25,12 +25,25 @@ training step.
 `CollectiveCounter` counts the collectives of any eager program as they
 are dispatched (the dry-run's counterpart of the JAX package's
 ``collective_bytes``, which parses them out of partitioned HLO).
+
+The port's spans and counters (`repro_torch.spans`, re-exported here:
+`span`, `count`, `counter`, `sync`, `last_run`) are what the
+training path records about itself while it runs, in every run rather
+than in a recorded step: a ``repro.*`` range per step phase, exchange,
+optimizer, health verdict, host sync and evaluation on the profiler's
+clock while a ``torch.profiler`` session records, device seconds for the
+device spans, and always-on counters (``exchange.bytes`` equals
+`step_wire_bytes` per training step; ``sync.host``, the kernels' launches,
+``pipeline.<phase>_s``). `RecordingBackend` stays the schedule and JAX
+parity checker.
 """
 from __future__ import annotations
 
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.pipegcn import _ExchangeBase
+from repro_torch.spans import (count, counter, last_run,  # noqa: F401
+                               span, sync)
 
 EXCHANGES = ("exchange", "exchange_start")
 

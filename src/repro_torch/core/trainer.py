@@ -32,6 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import elastic as elastic_mod
 from repro_torch.core.config import ModelConfig, PipeConfig
 from repro_torch.core.elastic import ElasticConfig, ElasticPlan
@@ -87,16 +88,19 @@ def make_train_step(model: PipeGCN, opt: Optimizer,
         loss, grads, new_buffers, _ = model.train_step(
             topo, params, buffers, data, generator, backend=backend,
             step_idx=step_idx, faults=faults)
-        new_params, new_opt_state = opt.apply(params, grads, opt_state)
+        with spans.span("repro.opt", device=True):
+            new_params, new_opt_state = opt.apply(params, grads, opt_state)
         if not guarded:
             return loss, new_params, new_opt_state, new_buffers
-        rep = health_check(loss, grads, new_buffers, grad_norm_limit=limit)
-        if backend is not None:
-            rep["ok"] = backend.all_ok(rep["ok"])
-        ok = rep["ok"]
-        new_params = tree_select(ok, new_params, params)
-        new_opt_state = tree_select(ok, new_opt_state, opt_state)
-        new_buffers = tree_select(ok, new_buffers, buffers)
+        with spans.span("repro.health"):
+            rep = health_check(loss, grads, new_buffers,
+                               grad_norm_limit=limit)
+            if backend is not None:
+                rep["ok"] = backend.all_ok(rep["ok"])
+            ok = rep["ok"]
+            new_params = tree_select(ok, new_params, params)
+            new_opt_state = tree_select(ok, new_opt_state, opt_state)
+            new_buffers = tree_select(ok, new_buffers, buffers)
         return loss, new_params, new_opt_state, new_buffers, rep
 
     return step
@@ -203,6 +207,7 @@ class _Layout:
     followers: bool = False
 
 
+@spans.run
 def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
                   epochs: int, lr: float = 0.01, seed: int = 0,
                   eval_every: int = 10,
@@ -265,7 +270,14 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
 
     Preemption: SIGTERM / SIGINT (main thread only) finishes the epoch,
     writes a final checkpoint (when checkpointing is configured) and
-    returns with `TrainResult.preempted=True`."""
+    returns with `TrainResult.preempted=True`.
+
+    Tracing (`repro_torch.spans`): under a ``torch.profiler`` session the
+    run records the spans ``repro.run.setup`` (entry to the first epoch),
+    ``repro.epoch`` and those of the step, the optimizer, the health guard,
+    each host sync and each evaluation; `spans.last_run()` then gives the
+    run's epochs, counter changes and device seconds per span."""
+    spans.enter("repro.run.setup")
     dev = resolve_device(device)
     topo = pipeline.topo
     if topo.send_idx.device.type != dev.type:
@@ -443,6 +455,12 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
         return (logits if lay.backend is None
                 else lay.backend.gather_parts(logits))
 
+    def evaluate(p):
+        with spans.span("repro.eval"):
+            logits = fwd(p)
+            with spans.span("repro.eval.metric"):
+                return pipeline.metric(logits)
+
     def build_tables(active_plan):
         # with a plan active the lost device is already remapped away, so
         # its device_down sites are moot; pad partitions never carry real
@@ -554,7 +572,8 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
         t = torch.tensor([kind, a, b, int(stop)], dtype=torch.int64,
                          device=dev)
         dist.broadcast(t, src=src)
-        return [int(v) for v in t.tolist()]
+        with spans.sync("status"):
+            return [int(v) for v in t.tolist()]
 
     def device_back(at_step):
         lost = set(range(orig_devices)) - set(plan.survivors)
@@ -585,10 +604,12 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
         dist.broadcast_object_list(box, src=src)
         return box[0]
 
+    spans.leave()
     t0 = time.perf_counter()
     epoch = start_epoch
     try:
         while epoch < epochs:
+            spans.enter("repro.epoch", epoch)
             try:
                 if lay.idle:
                     kind, a, b, stop = status(lay.writer)
@@ -626,7 +647,9 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
                                    lay.train, gen)
                     if hc is not None:
                         loss, params, opt_state, buffers, rep = out
-                        if not bool(rep["ok"]):
+                        with spans.sync("verdict"):
+                            ok = bool(rep["ok"])
+                        if not ok:
                             anomalies["skipped_steps"] += 1
                             consec += 1
                             anomalies["max_consecutive"] = max(
@@ -649,7 +672,8 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
                         es = buffers["es"]
                         if lay.backend is not None:
                             es = lay.backend.gather_parts(es)
-                        es_host = es.cpu().numpy()
+                        with spans.sync("es"):
+                            es_host = es.cpu().numpy()
                         if el_on:
                             # device loss pre-empts the staleness abort: a
                             # blanket whole-device fallback row is an
@@ -678,14 +702,16 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
                         status(lay.writer, _ABORT, 0, epoch)
                     raise
                 if epoch % eval_every == 0 or epoch == epochs - 1:
-                    m = pipeline.metric(fwd(params))
+                    m = evaluate(params)
                     last_metric, last_metric_epoch = m, epoch
-                    history["loss"].append(float(loss))
+                    with spans.sync("loss"):
+                        loss_host = float(loss)
+                    history["loss"].append(loss_host)
                     history["val_acc"].append(m["val"])
                     history["test_acc"].append(m["test"])
                     history["epoch"].append(epoch)
                     if log:
-                        line = (f"epoch {epoch:5d} loss {float(loss):.4f} "
+                        line = (f"epoch {epoch:5d} loss {loss_host:.4f} "
                                 f"val {m['val']:.4f} test {m['test']:.4f}")
                         if anomalies["skipped_steps"]:
                             line += f" anomalies {anomalies['skipped_steps']}"
@@ -773,15 +799,19 @@ def train_pipegcn(pipeline, model_cfg: ModelConfig, pipe_cfg: PipeConfig,
                         f"{plan.pad_parts} pad), restored checkpoint step "
                         f"{last}, resuming at epoch {epoch}")
     finally:
+        spans.leave()
         for signum, h in sig_handlers.items():
             signal.signal(signum, h)
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with spans.sync("end"):
+            torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     final = None
     if not lay.idle:           # the last epoch may have run this eval
-        final = (last_metric if last_metric_epoch == epochs - 1
-                 else pipeline.metric(fwd(params)))
+        if last_metric_epoch == epochs - 1:
+            final = last_metric
+        else:
+            final = evaluate(params)
     if lay.followers:
         # the idle ranks take the survivors' result
         import torch.distributed as dist

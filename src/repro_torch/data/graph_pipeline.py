@@ -9,10 +9,12 @@ COO shards are always present.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.pipegcn import (ShardedData, Topology, shard_data,
                                       split_spec_from, topology_from)
 from repro_torch.device import resolve_device
@@ -71,6 +73,19 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+class _Lap:
+    """Adds the host seconds since the last call to ``pipeline.<name>_s``
+    (an upload from the host returns once it has landed)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str):
+        now = time.perf_counter()
+        spans.count(f"pipeline.{name}_s", now - self.t)
+        self.t = now
+
+
 @dataclasses.dataclass
 class GraphDataPipeline:
     """Device-ready view of one partitioned graph dataset: the Topology,
@@ -97,21 +112,31 @@ class GraphDataPipeline:
         | "auto"; auto = rcm exactly when `agg` consumes tiles). The graph
         work is numpy and gives the JAX package's arrays byte for byte;
         the results are then placed on `device` (default the card; CUDA
-        missing raises, device="cpu" runs on the CPU)."""
+        missing raises, device="cpu" runs on the CPU). The host seconds of
+        each phase add to the counters ``pipeline.<phase>_s``
+        (`repro_torch.spans`): normalize, partition, layout (the
+        partitioned graph in its node order), topology (with the tiles and
+        their upload) and shard (features, labels and masks, uploaded)."""
         dev = resolve_device(device)
         ds = (make_dataset(name_or_ds) if isinstance(name_or_ds, str)
               else name_or_ds)
         layout = resolve_layout(layout, agg)
+        lap = _Lap()
         prop = (mean_normalized(ds.graph) if kind == "sage"
                 else sym_normalized(ds.graph))
+        lap("normalize")
         part = partition_graph(ds.graph, num_parts, seed=seed,
                                method=partition_method)
+        lap("partition")
         pg = build_partitioned_graph(prop, part, num_parts, layout=layout)
+        lap("layout")
         topo = topology_from(pg, with_tiles=(agg in TILE_ENGINES), device=dev)
+        lap("topology")
         base = shard_data(pg, ds.features, ds.labels, ds.train_mask,
                           ds.val_mask, device=dev)
         test_mask = torch.from_numpy(
             pg.pack_nodes(np.asarray(ds.test_mask))).to(dev)
+        lap("shard")
         return GraphDataPipeline(
             dataset=ds, pg=pg, topo=topo,
             train_data=base._replace(eval_mask=base.train_mask),
@@ -152,9 +177,10 @@ class GraphDataPipeline:
         """Global accuracy (single-label) or F1-micro (multilabel) on
         train/val/test splits, from packed (P, max_inner, C) logits."""
         ds = self.dataset
+        with spans.sync("metric"):
+            host = logits_packed.detach().cpu().numpy()
         # [:num_parts] drops the pad partitions of an elastic survivor layout
-        logits = self.pg.unpack_nodes(
-            logits_packed.detach().cpu().numpy()[:self.pg.num_parts])
+        logits = self.pg.unpack_nodes(host[:self.pg.num_parts])
         out = {}
         for split, mask in (("train", ds.train_mask), ("val", ds.val_mask),
                             ("test", ds.test_mask)):

@@ -30,12 +30,31 @@ in the fused engine.
               epilogue and z as an optional second output, and
               δcomb = Pᵀ·(du@wᵀ), computed as (Pᵀ·du)@wᵀ with the dense
               product once per output block; one launch each.
+
+Every engine method runs inside the device span ``repro.agg.<method>``
+(`repro_torch.spans`); a call nested in another counts its device time
+once, in the outer span.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import gcn_spmm
+
+
+def _traced(method):
+    """Run an engine method inside the device span repro.agg.<method>."""
+    name = "repro.agg." + method.__name__
+
+    @functools.wraps(method)
+    def call(*args, **kw):
+        with spans.span(name, device=True):
+            return method(*args, **kw)
+
+    return call
 
 
 class AggregationEngine:
@@ -56,6 +75,7 @@ class AggregationEngine:
     def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
         raise NotImplementedError
 
+    @_traced
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
                             relu: bool = False, with_z: bool = True):
         """u = (P·comb) @ w + b (ReLU'd when `relu`), plus the aggregation
@@ -66,6 +86,7 @@ class AggregationEngine:
             u = torch.relu(u)
         return u, (z if with_z else None)
 
+    @_traced
     def aggregate_transform_t(self, tslice, du, w, num_cols: int):
         """δcomb = Pᵀ·(du @ wᵀ)."""
         return self.spmm_t(tslice, du @ w.T, num_cols)
@@ -102,10 +123,12 @@ class CooEngine(AggregationEngine):
     name = "coo"
     fields = ("edge_row", "edge_col", "edge_w")
 
+    @_traced
     def spmm(self, tslice, comb, num_rows: int):
         edge_row, edge_col, edge_w = tslice
         return _coo(edge_col, edge_row, edge_w, comb, num_rows)
 
+    @_traced
     def spmm_t(self, tslice, dz, num_cols: int):
         edge_row, edge_col, edge_w = tslice
         return _coo(edge_row, edge_col, edge_w, dz, num_cols)
@@ -113,12 +136,14 @@ class CooEngine(AggregationEngine):
     # Out-of-phase edges get weight 0, so each phase's own rows see the
     # same sequence of terms as the unsplit call (the zeroed terms add an
     # exact 0.0); out-of-phase rows come out zero, as in the JAX package.
+    @_traced
     def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
         edge_row, edge_col, edge_w = tslice
         keep = _phase_keep(edge_row >= split.row_tail, phase)
         return _coo(edge_col, edge_row, torch.where(keep, edge_w, 0), comb,
                     num_rows)
 
+    @_traced
     def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
         edge_row, edge_col, edge_w = tslice
         keep = _phase_keep(edge_col >= split.col_tail, phase)
@@ -145,16 +170,20 @@ class BlockSparseEngine(AggregationEngine):
     _fwd = staticmethod(_named(fields, spmm_args))
     _bwd = staticmethod(_named(fields, spmm_t_args))
 
+    @_traced
     def spmm(self, tslice, comb, num_rows: int):
         return gcn_spmm.spmm(*self._fwd(tslice), comb.contiguous(), num_rows)
 
+    @_traced
     def spmm_t(self, tslice, dz, num_cols: int):
         return gcn_spmm.spmm_t(*self._bwd(tslice), dz.contiguous(), num_cols)
 
+    @_traced
     def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
         return gcn_spmm.spmm_phased(*self._fwd(tslice), comb.contiguous(),
                                     num_rows, split, phase)
 
+    @_traced
     def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
         return gcn_spmm.spmm_t_phased(*self._bwd(tslice), dz.contiguous(),
                                       num_cols, split, phase)
@@ -172,11 +201,13 @@ class FusedBlockSparseEngine(BlockSparseEngine):
 
     name = "fused"
 
+    @_traced
     def aggregate_transform(self, tslice, comb, w, b, num_rows: int,
                             relu: bool = False, with_z: bool = True):
         return gcn_spmm.spmm_fused(*self._fwd(tslice), comb, w, b,
                                    num_rows, relu=relu, with_z=with_z)
 
+    @_traced
     def aggregate_transform_t(self, tslice, du, w, num_cols: int):
         return gcn_spmm.spmm_fused_t(*self._bwd(tslice), du, w, num_cols)
 

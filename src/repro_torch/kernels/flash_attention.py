@@ -14,14 +14,17 @@ reads kv head h // (H/K), so no repeated k or v is built. Positions are the
 indices; a masked score is -1e30 (not -inf), so a query row without any
 unmasked key gets the mean of v over all T keys, as in the JAX package.
 Scores, softmax and the accumulator are f32; in bf16 the probabilities are
-rounded to bf16 before the p·v product. `flash_attention.launches` counts
-the kernel's launches.
+rounded to bf16 before the p·v product. The counter
+``flash_attention.flash_attention`` (`repro_torch.spans`) counts the
+kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from repro_torch import spans
 
 DEFAULT_Q_BLOCK = 512
 DEFAULT_KV_BLOCK = 512
@@ -196,8 +199,6 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                                      q_block=q_block, kv_block=kv_block)
     _check_args(q, k, v)
     out = launch(_library(), q, k, v, causal, window)
-    flash_attention.launches += 1
+    spans.count("flash_attention.flash_attention")
     return out
 
-
-flash_attention.launches = 0

@@ -46,8 +46,8 @@ on the same schedules (the transpose at F_out: it computes (Pᵀ·du)@wᵀ)
 and run the dense product once per output block, in 4×TF32 epilogue
 passes of at most 64 columns that other thread blocks of the same launch
 take up as the blocks' aggregates complete. The plain versions walk the
-whole block index streams. Each wrapper's ``launches`` attribute counts
-its kernel launches.
+whole block index streams. The counter ``gcn_spmm.<wrapper>``
+(`repro_torch.spans`) counts each wrapper's kernel launches.
 
 Tile extraction (``build_tile_topology``, ``build_tiles``,
 ``tile_density`` and the padding helpers) is a numpy copy of the JAX
@@ -60,6 +60,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch import spans
 
 TILE = 128          # adjacency tile edge
 
@@ -375,11 +377,9 @@ def spmm(work, items, rows, cols, vals, h, num_rows: int) -> torch.Tensor:
     if not h.is_cuda:
         return spmm_plain(rows, cols, vals, h, num_rows)
     z = _launch_spmm(False, work, items, vals, h, num_rows, None, "spmm")
-    spmm.launches += 1
+    spans.count("gcn_spmm.spmm")
     return z
 
-
-spmm.launches = 0
 
 
 def spmm_t(t_work, t_items, t_out, t_in, t_perm, vals, dz,
@@ -396,11 +396,9 @@ def spmm_t(t_work, t_items, t_out, t_in, t_perm, vals, dz,
         return spmm_t_plain(t_out, t_in, t_perm, vals, dz, num_cols)
     out = _launch_spmm(True, t_work, t_items, vals, dz, num_cols, None,
                        "spmm_t")
-    spmm_t.launches += 1
+    spans.count("gcn_spmm.spmm_t")
     return out
 
-
-spmm_t.launches = 0
 
 
 def spmm_phased(work, items, rows, cols, vals, h, num_rows: int,
@@ -418,11 +416,9 @@ def spmm_phased(work, items, rows, cols, vals, h, num_rows: int,
     blocks = phase_blocks(split.row_tail, num_rows, phase)
     z = _launch_spmm(False, work, items, vals, h, num_rows, blocks,
                      "spmm_phased", out)
-    spmm_phased.launches += 1
+    spans.count("gcn_spmm.spmm_phased")
     return z
 
-
-spmm_phased.launches = 0
 
 
 def spmm_t_phased(t_work, t_items, t_out, t_in, t_perm, vals, dz,
@@ -438,11 +434,9 @@ def spmm_t_phased(t_work, t_items, t_out, t_in, t_perm, vals, dz,
     blocks = phase_blocks(split.col_tail, num_cols, phase)
     out = _launch_spmm(True, t_work, t_items, vals, dz, num_cols, blocks,
                        "spmm_t_phased", out)
-    spmm_t_phased.launches += 1
+    spans.count("gcn_spmm.spmm_t_phased")
     return out
 
-
-spmm_t_phased.launches = 0
 
 def epilogue_block(n_out: int) -> int:
     """Output columns one epilogue pass of a fused kernel covers, for
@@ -509,11 +503,9 @@ def spmm_fused(work, items, rows, cols, vals, h, w, b, num_rows: int,
          if with_z else None)
     _launch_fused(False, work, items, vals, h, w, b, u, z, num_rows, relu,
                   "spmm_fused")
-    spmm_fused.launches += 1
+    spans.count("gcn_spmm.spmm_fused")
     return u, z
 
-
-spmm_fused.launches = 0
 
 
 def spmm_fused_t(t_work, t_items, t_out, t_in, t_perm, vals, du, w,
@@ -533,11 +525,9 @@ def spmm_fused_t(t_work, t_items, t_out, t_in, t_perm, vals, du, w,
                       dtype=torch.float32)
     _launch_fused(True, t_work, t_items, vals, du, w, None, out, None,
                   num_cols, False, "spmm_fused_t")
-    spmm_fused_t.launches += 1
+    spans.count("gcn_spmm.spmm_fused_t")
     return out
 
-
-spmm_fused_t.launches = 0
 
 
 def run_pointers(stream: np.ndarray, num_blocks: int) -> np.ndarray:

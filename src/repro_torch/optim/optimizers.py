@@ -9,7 +9,8 @@ architectures and ablations. The optimizers are functional — ``apply``
 returns new tensors and leaves its inputs alone — so the trainer's health
 guard can roll a step back by selection. Parameters may nest dicts and
 lists (the halo model's nest dicts; the LM zoo's keep a list of layer
-groups); the optimizer state mirrors their structure.
+groups); the optimizer state mirrors their structure. Each leaf's Adam
+update runs inside the span ``repro.opt.leaf`` (`repro_torch.spans`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch import spans
 
 Schedule = Callable[[int], torch.Tensor]
 
@@ -114,6 +117,15 @@ class Optimizer:
     name: str = "opt"
 
 
+def _upload(x: torch.Tensor, device) -> torch.Tensor:
+    """`x` (a host scalar) on `device`: on the card a blocking copy, which
+    synchronizes the stream, so it counts as a host sync (``opt_upload``)."""
+    if x.device == device:
+        return x
+    with spans.sync("opt_upload"):
+        return x.to(device)
+
+
 def _zeros_f32(params):
     return tree_map(lambda p: torch.zeros_like(p, dtype=_F32), params)
 
@@ -141,17 +153,18 @@ def adam(schedule: Schedule | float, b1: float = 0.9, b2: float = 0.999,
         b2t = 1 - torch.tensor(b2, dtype=_F32) ** torch.tensor(step, dtype=_F32)
 
         def upd(p, g, m, v):
-            g32 = g.to(_F32)
-            m = b1 * m + (1 - b1) * g32
-            v = b2 * v + (1 - b2) * torch.square(g32)
-            delta = (m / b1t.to(m.device)) / (
-                torch.sqrt(v / b2t.to(v.device)) + eps)
-            if weight_decay:
-                if decoupled:       # AdamW
-                    delta = delta + weight_decay * p.to(_F32)
-                else:               # coupled decay belongs in the gradients
-                    delta = delta + 0.0
-            return (p.to(_F32) - lr * delta).to(p.dtype), m, v
+            with spans.span("repro.opt.leaf"):
+                g32 = g.to(_F32)
+                m = b1 * m + (1 - b1) * g32
+                v = b2 * v + (1 - b2) * torch.square(g32)
+                m_hat = m / _upload(b1t, m.device)
+                delta = m_hat / (torch.sqrt(v / _upload(b2t, v.device)) + eps)
+                if weight_decay:
+                    if decoupled:       # AdamW
+                        delta = delta + weight_decay * p.to(_F32)
+                    else:               # coupled decay belongs in the gradients
+                        delta = delta + 0.0
+                return (p.to(_F32) - lr * delta).to(p.dtype), m, v
 
         new_p, new_m, new_v = _unzip(
             tree_map(upd, params, grads, state.mu, state.nu), 3)

@@ -38,6 +38,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro_torch import spans  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -150,13 +151,13 @@ def test_ops_attention_on_the_cpu_is_the_plain_version():
     kernel launch counted."""
     rng = np.random.default_rng(11)
     q, k, v = (_torch(x) for x in _qkv(rng, 1, 256, 256, 4, 2, 32))
-    before = fa.flash_attention.launches
+    before = spans.counter("flash_attention.flash_attention")
     got = ops.attention(q, k, v, causal=True, window=100, q_block=128,
                         kv_block=128)
     want = fa.flash_attention_plain(q, k, v, causal=True, window=100,
                                     q_block=128, kv_block=128)
     assert torch.equal(got, want)
-    assert fa.flash_attention.launches == before
+    assert spans.counter("flash_attention.flash_attention") == before
 
 
 # ------------------------------------------------------------ (b) oracles

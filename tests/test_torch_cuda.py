@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import gcn_spmm
 
 
@@ -58,7 +59,7 @@ def test_cuda_kernels_match_plain(f):
     st = {k: torch.from_numpy(v).to(dev) for k, v in streams.items()}
     sch = _schedules(streams, 300, 1000)
     parts = streams["rows"].shape[0]
-    before = (gcn_spmm.spmm.launches, gcn_spmm.spmm_t.launches)
+    before = (spans.counter("gcn_spmm.spmm"), spans.counter("gcn_spmm.spmm_t"))
     h = torch.randn(parts, 1000, f, device=dev)
     dz = torch.randn(parts, 300, f, device=dev)
     z = gcn_spmm.spmm(sch["work"], sch["items"], st["rows"], st["cols"],
@@ -72,7 +73,7 @@ def test_cuda_kernels_match_plain(f):
         d, gcn_spmm.spmm_t_plain(st["t_out"], st["t_in"], st["t_perm"],
                                  st["vals"], dz, 1000),
         rtol=1e-5, atol=1e-5)
-    assert (gcn_spmm.spmm.launches, gcn_spmm.spmm_t.launches) == (
+    assert (spans.counter("gcn_spmm.spmm"), spans.counter("gcn_spmm.spmm_t")) == (
         before[0] + 1, before[1] + 1)
 
 
@@ -182,14 +183,14 @@ def test_cuda_fused_kernel_matches_plain(fin, fout, relu, with_z):
     h = torch.randn(parts, 1000, fin, device="cuda")
     w = torch.randn(2 * fin, fout, device="cuda") / fin ** 0.5
     b = torch.randn(fout, device="cuda")
-    before = gcn_spmm.spmm_fused.launches
+    before = spans.counter("gcn_spmm.spmm_fused")
     # w[:fin] is the row slice a SAGE layer passes
     args = (st["work"], st["items"], st["rows"], st["cols"], st["vals"], h,
             w[:fin], b, 300)
     u, z = gcn_spmm.spmm_fused(*args, relu=relu, with_z=with_z)
     torch.cuda.synchronize()
     pu, pz = gcn_spmm.spmm_fused_plain(*args[2:], relu=relu, with_z=with_z)
-    assert gcn_spmm.spmm_fused.launches == before + 1
+    assert spans.counter("gcn_spmm.spmm_fused") == before + 1
     gcn_spmm.assert_close_to_scale(u, pu)
     if with_z:
         gcn_spmm.assert_close_to_scale(z, pz)
@@ -212,12 +213,12 @@ def test_cuda_fused_t_kernel_matches_plain(fin, fout):
     parts = st["rows"].shape[0]
     du = torch.randn(parts, 300, fout, device="cuda")
     w = torch.randn(fin, fout, device="cuda") / fout ** 0.5
-    before = gcn_spmm.spmm_fused_t.launches
+    before = spans.counter("gcn_spmm.spmm_fused_t")
     args = (st["t_work"], st["t_items"], st["t_out"], st["t_in"],
             st["t_perm"], st["vals"], du, w, 1000)
     d = gcn_spmm.spmm_fused_t(*args)
     torch.cuda.synchronize()
-    assert gcn_spmm.spmm_fused_t.launches == before + 1
+    assert spans.counter("gcn_spmm.spmm_fused_t") == before + 1
     gcn_spmm.assert_close_to_scale(d, gcn_spmm.spmm_fused_t_plain(*args[2:]))
     assert torch.equal(gcn_spmm.spmm_fused_t(*args), d)
 
@@ -323,10 +324,10 @@ def test_cuda_phased_kernels_match_plain(f):
             own = slice(tail, None) if phase == "boundary" else slice(0, tail)
             other = slice(0, tail) if phase == "boundary" else slice(tail, None)
             out = torch.full((P, rows, f), float("nan"), device="cuda")
-            before = kern.launches
+            before = spans.counter("gcn_spmm." + kern.__name__)
             got[phase] = kern(*args, x, rows, sp, phase, out=out)
             torch.cuda.synchronize()
-            assert kern.launches == before + 1
+            assert spans.counter("gcn_spmm." + kern.__name__) == before + 1
             assert got[phase].data_ptr() == out.data_ptr()
             assert torch.isfinite(out[:, own]).all()
             assert torch.isnan(out[:, other]).all()
@@ -386,6 +387,69 @@ def test_cuda_side_stream_exchange_equals_the_transpose():
             zip(recv, payloads)] == [True, True]
 
 
+@pytest.mark.cuda
+def test_cuda_device_spans_of_a_traced_run():
+    """Under a profiler session a split-phase run on the card records the
+    device spans: each span's device seconds positive, the side stream's
+    copies among the exchange's, a nested engine call counted once (the
+    outer span), the counters exact; untraced, no device span; under CUDA
+    graph capture no span at all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import ModelConfig, PipeConfig, train_pipegcn
+    from repro_torch.data import GraphDataPipeline
+    tp = GraphDataPipeline.build("grid-tiny", 4, agg="blocksparse",
+                                 device="cuda")
+    ds = tp.dataset
+    mc = ModelConfig(kind="sage", feat_dim=ds.feat_dim, hidden=64,
+                     num_layers=3, num_classes=ds.num_classes, dropout=0.5,
+                     agg="blocksparse", layout=tp.layout)
+
+    def run():
+        return train_pipegcn(tp, mc, PipeConfig.named("pipegcn"), epochs=4,
+                             eval_every=4, log=None, device="cuda")
+
+    res = run()
+    assert spans.last_run()["device_s"] == {}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        res = run()
+    last = spans.last_run()
+    n_eval = len(res.history["epoch"])
+    assert last["epochs"] == 4
+    dev = last["device_s"]
+    assert {"repro.opt", "repro.exchange", "repro.agg.spmm_phased",
+            "repro.agg.spmm_t_phased"} <= set(dev)
+    assert all(s > 0 for s in dev.values()), dev
+    assert {e for _, e, _ in last["spans"]} == {0, 1, 2, 3}
+    assert sum(n == "repro.opt" for n, _, _ in last["spans"]) == 4
+    # the split starts every exchange on the side stream: 2 per fused train
+    # step, L per (vanilla) eval forward
+    copies = last["counters"]["exchange.side_copies"]
+    assert copies == 4 * 2 + n_eval * 3
+    # per train step 2 phases per layer forward, 2 per layer > 0 backward;
+    # per eval forward 2 per layer
+    assert last["counters"]["gcn_spmm.spmm_phased"] == (4 + n_eval) * 2 * 3
+    assert last["counters"]["gcn_spmm.spmm_t_phased"] == 4 * 2 * 2
+    # per train step the verdict, the select, the finite check's upload and
+    # Adam's two uploads per leaf (w and b of 3 layers); per evaluation the
+    # metric and the loss; and the closing synchronize
+    assert last["counters"]["sync.host"] == 4 * (3 + 2 * 6) + n_eval * 2 + 1
+
+    graph = torch.cuda.CUDAGraph()
+    x = torch.zeros(8, device="cuda")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        with torch.cuda.graph(graph):
+            inner = spans.span("repro.test", device=True)
+            y = x + 1
+    assert inner is spans.span("repro.off")      # the shared null context
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.ones(8, device="cuda"))
+
+
 # (B, S, T, H, K, causal, window, block): the CPU sweep's GQA groups and
 # masks (tests/test_torch_attention.py), a ragged S and T (not multiples of
 # the kernel's 64-row tiles), T > S, and T < S with rows that have no
@@ -422,11 +486,11 @@ def test_cuda_flash_attention_matches_plain(d, dtype):
         q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to("cuda", dtype)
             for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
-        before = fa.flash_attention.launches
+        before = spans.counter("flash_attention.flash_attention")
         got = fa.flash_attention(q, k, v, causal=causal, window=window,
                                  q_block=blk, kv_block=blk)
         torch.cuda.synchronize()
-        assert fa.flash_attention.launches == before + 1
+        assert spans.counter("flash_attention.flash_attention") == before + 1
         assert got.dtype == dtype and got.shape == (b, s, h, d)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, q_block=blk,
@@ -559,7 +623,7 @@ def test_cuda_ops_entry_points_match_plain_and_the_stacked_launch(f):
     du = torch.randn(parts, 300, 24, device="cuda")
     cut = int((streams["rows"][0] >= 1).sum())      # rows from block 1 on
     sp = gcn_spmm.SplitSpec(128, 128, cut, cut)
-    before = {k: getattr(gcn_spmm, k).launches for k in (
+    before = {k: spans.counter("gcn_spmm." + k) for k in (
         "spmm", "spmm_t", "spmm_fused", "spmm_fused_t", "spmm_phased")}
     got = {"spmm": ops.spmm(*fwd0, h[0], 300),
            "spmm_t": ops.spmm_t(*bwd0, dz[0], 1000),
@@ -567,7 +631,7 @@ def test_cuda_ops_entry_points_match_plain_and_the_stacked_launch(f):
            "spmm_fused_t": ops.spmm_fused_t(*bwd0, du[0], w, 1000),
            "spmm_phased": ops.spmm_phased(*fwd0, h[0], 300, cut,
                                           "boundary")[128:]}
-    after = {k: getattr(gcn_spmm, k).launches for k in before}
+    after = {k: spans.counter("gcn_spmm." + k) for k in before}
     assert all(after[k] == before[k] + 1 for k in before), (before, after)
     stacked = {"spmm": gcn_spmm.spmm(*fwd, h, 300),
                "spmm_t": gcn_spmm.spmm_t(*bwd, dz, 1000),

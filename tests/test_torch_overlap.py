@@ -31,6 +31,7 @@ from repro.core.config import PipeConfig as JPipeConfig  # noqa: E402
 from repro.core.pipegcn import PipeGCN as JPipeGCN  # noqa: E402
 from repro.core.trace_utils import \
     expected_split_events as jexpected_split_events  # noqa: E402
+from repro_torch import spans  # noqa: E402
 from repro_torch.core import (ModelConfig, PipeConfig, PipeGCN,  # noqa: E402
                               train_pipegcn)
 from repro_torch.core.pipegcn import SimBackend  # noqa: E402
@@ -119,7 +120,7 @@ def test_phased_plain_versions(setups, f):
            topo.tile_t_in, topo.tile_t_perm, topo.tile_vals)
     z = gcn_spmm.spmm(*fwd, h, R)
     d = gcn_spmm.spmm_t(*bwd, dz, C)
-    before = gcn_spmm.spmm_phased.launches, gcn_spmm.spmm_t_phased.launches
+    before = spans.counter("gcn_spmm.spmm_phased"), spans.counter("gcn_spmm.spmm_t_phased")
     for full, tail, run in ((z, sp.row_tail, lambda ph: gcn_spmm.spmm_phased(
                                  *fwd, h, R, sp, ph)),
                             (d, sp.col_tail, lambda ph: gcn_spmm.spmm_t_phased(
@@ -130,8 +131,8 @@ def test_phased_plain_versions(setups, f):
         assert torch.isnan(bnd[:, :tail]).all()
         assert torch.isnan(inr[:, tail:]).all()
     # the CPU path runs the plain versions: no kernel launch is counted
-    assert (gcn_spmm.spmm_phased.launches,
-            gcn_spmm.spmm_t_phased.launches) == before
+    assert (spans.counter("gcn_spmm.spmm_phased"),
+            spans.counter("gcn_spmm.spmm_t_phased")) == before
 
 
 def test_phase_helpers_refuse_empty_or_off_grid_phases():

@@ -16,6 +16,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.aggregate import get_engine as jget_engine  # noqa: E402
 from repro.kernels.gcn_spmm import build_tile_topology as jbuild  # noqa: E402
 from repro.kernels.gcn_spmm import pad_tile_topology as jpad  # noqa: E402
+from repro_torch import spans  # noqa: E402
 from repro_torch.kernels import gcn_spmm  # noqa: E402
 from repro_torch.kernels.aggregate import get_engine  # noqa: E402
 
@@ -116,9 +117,9 @@ def test_cpu_wrappers_use_plain_versions_and_count_no_launch():
     _, tts = _random_shards(256, 384, 500)
     st = {k: torch.from_numpy(_stack(tts, k))
           for k in ("rows", "cols", "vals", "t_out", "t_in", "t_perm")}
-    before = (gcn_spmm.spmm.launches, gcn_spmm.spmm_t.launches)
+    before = (spans.counter("gcn_spmm.spmm"), spans.counter("gcn_spmm.spmm_t"))
     h = torch.randn(len(tts), 384, 32, dtype=torch.float32)
     z = gcn_spmm.spmm(None, None, st["rows"], st["cols"], st["vals"], h, 256)
     zp = gcn_spmm.spmm_plain(st["rows"], st["cols"], st["vals"], h, 256)
     assert torch.equal(z, zp)
-    assert (gcn_spmm.spmm.launches, gcn_spmm.spmm_t.launches) == before
+    assert (spans.counter("gcn_spmm.spmm"), spans.counter("gcn_spmm.spmm_t")) == before
