@@ -83,8 +83,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
                bit-equal to the unsplit kernel; times per phase beside the
                unsplit kernel's; yardstick the BSR product of each phase's
                tiles.
+  2a. coo    the COO engine's segment kernel (kernels/coo_spmm.py). First
+             its float64 instance, which every COO oracle below runs
+             (every pipeline of this run carries the COO views), held to
+             the plain float64 gather + index_add_ version at 1e-12
+             relative norm on reddit-sim and yelp-sim P=4, both
+             directions, at every width phase_steps' COO models aggregate
+             at. Then at the benchmark cells' shapes (the graph from
+             portbench's generator and configuration, partitioned by the
+             port's pipeline): proteins-sage3.p4-coo at F = 8 and 256 and
+             reddit-sage4.p4-blocksparse at 256, each direction held to
+             the plain version at 1e-5 relative norm; its ms, its L2
+             gather bytes (a source row per real edge), the benchmark's
+             bound (benchlib/work.py), the plain version's ms on proteins
+             and the tile pair's on Reddit.
   3. steps   2 training steps at dropout 0 through the kernels (f32) and 2
-             through the plain COO engine in float64 on the card (an exact
+             through the COO engine in float64 on the card (an exact
              reference: the bound is the kernel path's own error), at each
              dataset's full-width GraphSAGE model: reddit-sim with
              agg=blocksparse (auto order)
@@ -114,8 +128,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              epochs each, at full width:
              - reddit-sim (4 partitions, GraphSAGE, feat 128, hidden 256, 4
                layers, 16 classes, variant pipegcn, dropout 0.5), with
-               agg=blocksparse / auto, agg=fused / auto and agg=fused /
-               aggregate-first;
+               agg=blocksparse / auto, agg=fused / auto, agg=fused /
+               aggregate-first and agg=coo / auto (the COO segment
+               kernel's launches counted, no tile kernel);
              - yelp-sim (4 partitions, GraphSAGE, feat 120, hidden 512, 4
                layers, 24 classes multilabel BCE, F1 metric, dropout 0.1),
                agg=fused / auto;
@@ -312,8 +327,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
                nodes, 6,553,600 edges) on 16×16: pipegcn fused and per
                layer, vanilla, and fused under --overlap split-phase; at
                SMALL (Reddit-scale) on 2×16×16; the COO engine, as JAX's
-               dry-run, so none of the seven kernels runs. Each: median
-               step ms of 3, peak bytes beside the argument bytes,
+               dry-run, so none of the seven tile and attention kernels
+               runs, and each aggregation is one launch of the COO segment
+               kernel, counted against the step's layer orders. Each:
+               median step ms of 3, peak bytes beside the argument bytes,
                boundary collectives equal to expected_boundary_collectives
                (2 fused, 2L-1 per layer) and to the all-to-alls counted,
                the bytes handed to the exchange equal to JAX's wire-byte
@@ -351,7 +368,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                JAX's collective bytes; each row's collective bytes beside
                JAX's; bytes per device; these rows include the 11 combos
                torch 2.11's DTensor refused before shardctx routed the ops;
-             - no port kernel launched in the phase; the phase's time.
+             - no port kernel launched in the LM runs; the phase's time.
   8. overlap torch.profiler trace of 3 split steps per split graph: the
              share of the side-stream exchange copies' device time that
              lies inside the interior-phase kernel on the compute stream
@@ -486,6 +503,14 @@ def phase_build():
     want = [(t, fb, on) for t in (False, True) for fb in (8, 16, 32, 64, 128)
             for on in (16, 64)]
     assert sorted(FUSED_BUILD) == sorted(want), sorted(FUSED_BUILD)
+    inst = re.compile(r"coo_segment_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E")
+    for name, r in _build.kernel_resources(results["coo_spmm"][0]).items():
+        m = inst.search(name)
+        if m:
+            t, vec, g, k = m.groups()
+            log(f"build: coo_segment_kernel<{'float' if t == 'f' else 'double'}"
+                f", VEC={vec}, G={g}, K={k}>: {r['registers']} registers, "
+                f"stack + local (spills) {r['stack'] + r['local']} bytes")
 
 
 def gcn_bound(flops: float, nbytes: float) -> dict:
@@ -669,6 +694,189 @@ def _spmm_rows(topo, graph, widths):
             yield name, row
     log(f"kernels: {graph} {n_nz} nonzero 128x128 tiles over {P} partitions "
         f"({n} stream slots each)")
+
+
+# The benchmark cells the COO segment kernel is timed at: (workload, the
+# widths its main path aggregates at, whether the plain version is timed
+# beside it: at Reddit's F = 256 its two (E, F) intermediates take 48 GB).
+COO_CELLS = (("proteins-sage3.p4-coo", (8, 256), True),
+             ("reddit-sage4.p4-blocksparse", (256,), False))
+# Columns a call of the plain version computes when it is compared with
+# the kernel: the product is column by column, so slices of F give the
+# same sums from a quarter of F = 256's intermediates.
+COO_PLAIN_COLS = 64
+COO_F64_REL = 1e-12     # the COO kernel in float64 against the plain one
+
+
+def _cell_topology(workload: str):
+    """A benchmark cell's topology on the card, with the COO kernel's edge
+    views: the cell's graph from the benchmark's own generator
+    (``benchlib.graphgen.make_graph_data`` on the configuration that
+    ``benchlib.spec.resolve`` reads), partitioned and laid out by the
+    port's GraphDataPipeline as the cell's traffic asks."""
+    import numpy as np
+    from benchlib import spec
+    from benchlib.graphgen import make_graph_data
+    from repro_torch.data import GraphDataPipeline
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.graph.synthetic import GraphDataset
+    cell = spec.resolve(workload)
+    cfg, traffic = cell.config, cell.traffic
+    data = make_graph_data(cfg)
+    g = data.graph
+    ds = GraphDataset(
+        name=cfg["name"],
+        graph=CSRGraph(indptr=g.indptr, indices=g.indices,
+                       weights=np.ones(g.num_edges, np.float32)),
+        features=data.features, labels=data.labels,
+        train_mask=data.train_mask, val_mask=data.val_mask,
+        test_mask=data.test_mask, num_classes=data.num_classes,
+        multilabel=data.multilabel)
+    topo = GraphDataPipeline.build(
+        ds, int(traffic["partitions"]), kind=cfg["kind"],
+        seed=int(cfg["partition_seed"]), agg=traffic["agg"],
+        layout=traffic["layout"], device="cuda").topo
+    return topo if topo.coo_items is not None else topo.with_coo_views()
+
+
+def _coo_counts(topo):
+    """The benchmark's work counts (`benchlib.work.GraphCounts`) of a
+    topology from its COO views: real edges, rows that receive one,
+    columns that some edge reads."""
+    from benchlib import work
+    return work.GraphCounts(
+        nodes=int(topo.inner_mask.sum()),
+        edges=int(topo.coo_row_ptr[:, -1].sum()),
+        rows=int((topo.coo_row_ptr.diff(dim=1) > 0).sum()),
+        cols=int((topo.coo_col_ptr.diff(dim=1) > 0).sum()))
+
+
+def _coo_pair(topo):
+    """{direction: (kernel call, plain call, inputs, outputs)} of a
+    topology's COO views: call(x) -> the product."""
+    from repro_torch.kernels import coo_spmm
+    R = topo.max_inner
+    C = R + topo.halo_size
+    edges = (topo.edge_row, topo.edge_col, topo.edge_w)
+    fwd = tuple(getattr(topo, k) for k in coo_spmm.FWD_VIEW)
+    bwd = tuple(getattr(topo, k) for k in coo_spmm.BWD_VIEW)
+    return {"spmm": (lambda x: coo_spmm.spmm(edges, fwd, x, R),
+                     lambda x: coo_spmm.spmm_plain(*edges, x, R), C, R),
+            "spmm_t": (lambda x: coo_spmm.spmm_t(edges, bwd, x, C),
+                       lambda x: coo_spmm.spmm_t_plain(*edges, x, C), R, C)}
+
+
+def _plain_by_columns(plain, x):
+    """The plain product of x, COO_PLAIN_COLS columns a call."""
+    import torch
+    return torch.cat([plain(x[..., i:i + COO_PLAIN_COLS])
+                      for i in range(0, x.shape[-1], COO_PLAIN_COLS)], dim=-1)
+
+
+def _coo_oracle_widths(pipeline) -> list:
+    """The widths phase_steps' COO oracle aggregates at on this graph: for
+    its models' orders (auto, aggregate-first; train and eval) each
+    layer's input width under aggregate-first and output width under
+    transform-first."""
+    from repro_torch.core import PipeConfig, PipeGCN
+    widths = set()
+    for order in ("auto", "aggregate-first"):
+        mc, _ = _model_config(pipeline, "coo", order)
+        dims = ([mc.feat_dim] + [mc.hidden] * (mc.num_layers - 1)
+                + [mc.num_classes])
+        model = PipeGCN(mc, PipeConfig.named("pipegcn"))
+        for train in (True, False):
+            for ell, o in enumerate(model.step_orders(pipeline.topo, train)):
+                widths.add(dims[ell + (o == "transform-first")])
+    return sorted(widths)
+
+
+def _coo_oracle(pipelines):
+    """The float64 COO kernel, the reference of phase_steps and of the
+    guard, fault and elastic drills, held to the plain float64 gather +
+    index_add_ version on each graph those use, in both directions at the
+    widths phase_steps' COO models aggregate at (COO_F64_REL)."""
+    import torch
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for pipeline in pipelines:
+        topo = pipeline.topo.to(torch.float64)
+        for f in _coo_oracle_widths(pipeline):
+            for name, (kern, plain, n_in, _) in _coo_pair(topo).items():
+                x = torch.randn(topo.num_parts, n_in, f, device="cuda",
+                                dtype=torch.float64, generator=gen)
+                rel = _rel_close(kern(x), plain(x), f"coo f64 oracle "
+                                 f"{graph_name(pipeline)} {name} F={f}",
+                                 COO_F64_REL)
+                rows.append(dict(graph=graph_name(pipeline), kernel=name,
+                                 f=f, rel_vs_plain_f64=rel))
+    log(f"coo kernel: the float64 oracle equals the plain float64 version "
+        f"(<= {COO_F64_REL}): {json.dumps(rows)}")
+    return rows
+
+
+def phase_coo(reddit, yelp):
+    """The COO segment kernel (coo_spmm): first the float64 instance that
+    the later phases take as their reference, held to the plain version
+    on their graphs (`_coo_oracle`); then at the benchmark cells' shapes
+    each direction's ms beside the L2 gather bytes it reads (one source
+    row per real edge), the benchmark's bound (`benchlib.work`: each row
+    read once) and the plain gather + index_add_ version, which it is held
+    to at 1e-5 relative norm at every width (and timed beside it on
+    proteins); on Reddit beside the tile pair at the same width.
+    Information for later work: no cell runs it."""
+    import torch
+    from repro_torch.kernels import gcn_spmm
+    sys.path.insert(0, os.path.join(ROOT, "portbench"))
+    from benchlib import work
+    oracle = _coo_oracle((reddit, yelp))
+    rows = []
+    for workload, widths, time_plain in COO_CELLS:
+        t0 = time.perf_counter()
+        topo = _cell_topology(workload)
+        counts = _coo_counts(topo)
+        parts = [int((it[..., 4] > 1).sum(dim=1).max())
+                 for it in (topo.coo_items, topo.coo_t_items)]
+        log(f"coo kernel: {workload} topology in "
+            f"{time.perf_counter() - t0:.1f} s: {counts}, items "
+            f"{tuple(topo.coo_items.shape)} / {tuple(topo.coo_t_items.shape)}"
+            f" (of them in segments cut in several: {parts[0]} / "
+            f"{parts[1]} a partition at most), {topo.edge_w.shape[1]} "
+            f"padded slots a partition")
+        P = topo.num_parts
+        R, C = topo.max_inner, topo.max_inner + topo.halo_size
+        tiles = {"spmm": lambda x: gcn_spmm.spmm(
+                     topo.tile_work, topo.tile_items, topo.tile_rows,
+                     topo.tile_cols, topo.tile_vals, x, R),
+                 "spmm_t": lambda x: gcn_spmm.spmm_t(
+                     topo.tile_t_work, topo.tile_t_items, topo.tile_t_out,
+                     topo.tile_t_in, topo.tile_t_perm, topo.tile_vals, x, C)}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for f in widths:
+            for name, (kern, plain, n_in, _) in _coo_pair(topo).items():
+                x = torch.randn(P, n_in, f, device="cuda", generator=gen)
+                flops, nbytes = work.agg_call_work(name, counts, f)
+                bound = 1e3 * work.bound_seconds(flops, nbytes)
+                ms = cuda_time_ms(lambda: kern(x), 20)
+                gather = counts.edges * f * x.element_size()
+                row = dict(cell=workload, kernel=name, f=f, ms=ms,
+                           bound_ms=bound, bound_share=bound / ms,
+                           l2_gather_bytes=gather,
+                           gather_tb_per_s=gather / ms / 1e9)
+                row["rel_vs_plain"] = _rel_close(
+                    kern(x), _plain_by_columns(plain, x),
+                    f"coo {workload} {name} F={f}", 1e-5)
+                if time_plain:
+                    row["plain_ms"] = cuda_time_ms(lambda: plain(x), 2)
+                if topo.tile_items is not None:
+                    row["tile_kernel_ms"] = cuda_time_ms(
+                        lambda: tiles[name](x), 20)
+                rows.append(row)
+                log(f"coo kernel: {json.dumps(row)}")
+                del x
+        del topo, tiles
+        torch.cuda.empty_cache()
+    return dict(shapes=rows, oracle_f64=oracle)
 
 
 def _pad_rows(x, rows: int):
@@ -945,13 +1153,18 @@ def phase_steps(reddit, yelp):
 
 KERNELS = ("spmm", "spmm_t", "spmm_fused", "spmm_fused_t", "spmm_phased",
            "spmm_t_phased", "flash_attention")
+# The COO engine's segment kernel, one launch a call of each wrapper.
+COO_KERNELS = ("coo_spmm.spmm", "coo_spmm.spmm_t", "coo_spmm.spmm_phased",
+               "coo_spmm.spmm_t_phased")
+LAUNCHES = KERNELS + COO_KERNELS
 
 
 def launch_counters() -> dict:
     """kernel name -> the `repro_torch.spans` counter of its wrapper's
-    kernel launches."""
-    return {k: ("flash_attention." if k == "flash_attention" else "gcn_spmm.")
-            + k for k in KERNELS}
+    kernel launches (a COO kernel's name is its counter's)."""
+    return {k: k if k in COO_KERNELS else
+            ("flash_attention." if k == "flash_attention" else "gcn_spmm.")
+            + k for k in LAUNCHES}
 
 
 _LAUNCHES_AT_RESET: dict = {}
@@ -971,42 +1184,54 @@ def read_launches() -> dict:
             for k, c in launch_counters().items()}
 
 
+def _step_launches(n: dict, orders, split: bool, fused: bool, coo: bool,
+                   steps: int):
+    """Add to `n` the kernel launches of `steps` train steps under the
+    layer `orders` (see expected_launches); a COO model's count under
+    coo_spmm.<wrapper>."""
+    pre = "coo_spmm." if coo else ""
+    for ell, order in enumerate(orders):
+        tf = order == "transform-first"
+        if split:
+            n[pre + "spmm_phased"] += 2 * steps
+            if ell > 0:
+                n[pre + "spmm_t_phased"] += 2 * steps
+            elif tf:
+                n[pre + "spmm_t"] += steps
+            continue
+        n[pre + ("spmm" if tf or not fused else "spmm_fused")] += steps
+        if tf or ell > 0:
+            n[pre + ("spmm_t" if tf or not fused else "spmm_fused_t")] += steps
+
+
 def expected_launches(model, topo, steps: int, evals: int) -> dict:
     """Kernel launches a run of `steps` train steps and `evals` eval
     forwards implies, from its layer orders. Unsplit: a transform-first
     layer runs spmm forward and spmm_t backward (layer 0 too: its weight
     gradient needs Pᵀ·du); an aggregate-first layer runs spmm_fused (fused
-    engine) or spmm (blocksparse) forward, and spmm_fused_t or spmm_t
+    engine) or spmm (blocksparse, COO) forward, and spmm_fused_t or spmm_t
     backward except at layer 0, where Alg. 1 stops the backward. Split:
     every layer runs spmm_phased twice (boundary, interior) forward and
     spmm_t_phased twice backward from layer 1 on, layer 0 the unphased
     spmm_t where it is transform-first; the eval forward (vanilla, "auto"
-    overlap) splits likewise."""
+    overlap) splits likewise. The COO engine's launches count under
+    coo_spmm.<wrapper>, the tile kernels' under their names."""
     import dataclasses
     from repro_torch.core import PipeConfig
     fused = model.model.agg == "fused"
-    n = dict.fromkeys(KERNELS, 0)
-    split = model._split_active() is not None
-    for ell, order in enumerate(model.step_orders(topo, train=True)):
-        tf = order == "transform-first"
-        if split:
-            n["spmm_phased"] += 2 * steps
-            if ell > 0:
-                n["spmm_t_phased"] += 2 * steps
-            elif tf:
-                n["spmm_t"] += steps
-            continue
-        n["spmm" if tf or not fused else "spmm_fused"] += steps
-        if tf or ell > 0:
-            n["spmm_t" if tf or not fused else "spmm_fused_t"] += steps
+    coo = model.model.agg == "coo"
+    n = dict.fromkeys(LAUNCHES, 0)
+    _step_launches(n, model.step_orders(topo, train=True),
+                   model._split_active() is not None, fused, coo, steps)
     evaluator = dataclasses.replace(model, pipe=PipeConfig.vanilla())
     split = evaluator._split_active() is not None
+    pre = "coo_spmm." if coo else ""
     for order in evaluator.step_orders(topo, train=False):
         tf = order == "transform-first"
         if split:
-            n["spmm_phased"] += 2 * evals
+            n[pre + "spmm_phased"] += 2 * evals
         else:
-            n["spmm" if tf or not fused else "spmm_fused"] += evals
+            n[pre + ("spmm" if tf or not fused else "spmm_fused")] += evals
     return n
 
 
@@ -1097,13 +1322,19 @@ def phase_train(reddit, yelp, split_pipes):
                                  (yelp, "fused", "auto"),
                                  (yelp2, "blocksparse", "auto"),
                                  (yelp2, "fused", "auto"),
-                                 (grid, "blocksparse", "auto")):
+                                 (grid, "blocksparse", "auto"),
+                                 (reddit, "coo", "auto")):
         runs[graph_name(pipeline), agg, order] = train_run(pipeline, agg,
                                                            order)
     for key in runs:
         split = key[0] in {graph_name(p) for p in split_pipes}
         phased = runs[key]["launches"]["spmm_phased"]
         assert (phased > 0) == split, (key, runs[key]["launches"])
+    # the COO main path: every aggregation through the segment kernel, one
+    # launch a call, and no tile kernel
+    r = runs["reddit-sim P=4", "coo", "auto"]["launches"]
+    assert r["coo_spmm.spmm"] > 0 and r["coo_spmm.spmm_t"] > 0, r
+    assert not any(r[k] for k in KERNELS), r
     # reddit-sim under auto: pricing the fused kernels moves training
     # layers 1-2 to transform-first, so a step runs 1 spmm_fused + 3 spmm
     # + 3 spmm_t and an eval 3 spmm_fused + 1 spmm
@@ -2488,7 +2719,7 @@ def _segments_launches(model, layouts, epochs, eval_at) -> dict:
     """Launches of a run whose steps ran on several layouts: `layouts` is
     [(topo, first epoch, end epoch)] in run order (replayed epochs
     counted again); evals at epochs `eval_at` on the layout in force."""
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(LAUNCHES, 0)
     for topo, lo, hi in layouts:
         evals = sum(lo <= e < hi for e in eval_at)
         for k, v in expected_launches(model, topo, hi - lo, evals).items():
@@ -2809,8 +3040,9 @@ def _api_ops(reddit, yelp2, card):
     got = {k: fn() for k, fn in calls.items()}
     torch.cuda.synchronize()
     launches = read_launches()
-    want_launches = dict.fromkeys(KERNELS, 1)
-    want_launches.update(spmm_phased=2, spmm_t_phased=2, flash_attention=0)
+    want_launches = dict.fromkeys(LAUNCHES, 0)
+    want_launches.update(dict.fromkeys(KERNELS, 1), spmm_phased=2,
+                         spmm_t_phased=2, flash_attention=0)
     assert launches == want_launches, launches
     # the plain versions and the stacked launches on the same inputs
     sched = (topo.tile_work, topo.tile_items)
@@ -2904,7 +3136,7 @@ def _api_loss(reddit, card):
         g_ref, g_api, g_3 = (torch.Generator(device="cuda").manual_seed(1)
                              for _ in range(3))
         want = expected_launches(model, topo, 1, 0)
-        total = dict.fromkeys(KERNELS, 0)
+        total = dict.fromkeys(LAUNCHES, 0)
         for t in range(2):
             b_in = b_api
             reset_launches()
@@ -3302,7 +3534,7 @@ def phase_attention():
                    y=out.reshape(1, s, -1) @ lay["p"]["wo"])
     torch.cuda.synchronize()
     launches = read_launches()
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(LAUNCHES, 0)
     want["flash_attention"] = len(layers)
     assert launches == want, (launches, want)
     log(f"attention: {len(layers)} layers through ops.attention, launches "
@@ -4255,8 +4487,18 @@ def _dryrun_gcn(card):
     from repro_torch.launch.dryrun_pipegcn import dryrun_pipegcn
     rows = []
     for mp, variant, fuse, overlap in DRYRUN_GCN:
+        reset_launches()
         r = dryrun_pipegcn(mp, variant, fuse=fuse, overlap=overlap,
                            device="cuda", steps=DRYRUN_GCN_STEPS)
+        launches = read_launches()
+        # the recorded step and the timed ones, every aggregation one COO
+        # kernel launch
+        want_launches = dict.fromkeys(LAUNCHES, 0)
+        _step_launches(want_launches, r["orders_train"],
+                       "overlap_phase_rows" in r, False, True,
+                       1 + DRYRUN_GCN_STEPS)
+        assert launches == want_launches, (r["orders_train"], launches,
+                                           want_launches)
         sz = r["sizes"]
         fused = fuse and variant != "vanilla"
         want = expected_boundary_collectives(sz["num_layers"], fused)
@@ -4278,7 +4520,9 @@ def _dryrun_gcn(card):
             f"{r['peak_bytes']} B beside {r['argument_size_in_bytes']} B of "
             f"arguments; boundary collectives {want} (expected {want}) OK; "
             f"wire {wire} B == JAX's formula OK; collectives "
-            f"{r['collective_counts_per_device']}")
+            f"{r['collective_counts_per_device']}; COO launches "
+            f"{ {k: v for k, v in launches.items() if v} } == the orders' "
+            f"{r['orders_train']} OK")
         rows.append({k: r[k] for k in (
             "arch", "multi_pod", "fuse_exchange", "overlap", "chips",
             "step_ms", "step_ms_all", "peak_bytes", "argument_size_in_bytes",
@@ -4480,8 +4724,8 @@ def phase_dryrun():
     t0 = time.perf_counter()
     card = nvidia_smi_line()
     torch.cuda.empty_cache()
+    gcn = _dryrun_gcn(card)     # its COO launches checked per combo
     reset_launches()
-    gcn = _dryrun_gcn(card)
     lm, moe = _dryrun_lm(card)
     routed = _dryrun_routed(card)
     launches = read_launches()
@@ -4491,7 +4735,7 @@ def phase_dryrun():
     with tempfile.TemporaryDirectory() as tmp:
         sweep = _dryrun_sweep_rows(card, _dryrun_sweeps(tmp), gcn)
     assert not any(launches.values()), launches
-    log(f"dryrun [{card}]: no port kernel launched in the phase "
+    log(f"dryrun [{card}]: no port kernel launched in the LM runs "
         f"({launches}) OK")
     slim = {name: {"meta": {k: row["meta"][k] for k in (
         "argument_size_in_bytes", "bytes_per_device",
@@ -4554,6 +4798,8 @@ def main(argv) -> int:
             f"{topo.tile_rows.shape[1]} built in "
             f"{time.perf_counter() - t0:.2f} s")
     reddit, yelp = pipelines["reddit-sim"], pipelines["yelp-sim"]
+    for p in pipelines.values():    # the COO oracles run on these graphs
+        p.topo = p.topo.with_coo_views()
     split_pipes = []
     for name, parts in SPLIT_GRAPHS:
         t0 = time.perf_counter()
@@ -4568,6 +4814,7 @@ def main(argv) -> int:
     rows = phase_kernels({k: p.topo for k, p in pipelines.items()})
     rows.update(phase_fused_kernels({k: p.topo for k, p in pipelines.items()}))
     rows.update(phase_phased_kernels(split_pipes))
+    coo_rows = phase_coo(reddit, yelp)
     phase_steps(reddit, yelp)
     phase_split(split_pipes)
     phase_spmd(split_pipes[1])
@@ -4593,6 +4840,10 @@ def main(argv) -> int:
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    coo_rows["launches_by_run"] = {
+        "/".join(k): {c: r["launches"].get(c, 0) for c in COO_KERNELS}
+        for k, r in runs.items() if "launches" in r}
+    print(json.dumps({"coo_kernel": coo_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,8 +20,10 @@ class ModelConfig:
     num_classes: int = 16
     dropout: float = 0.5
     multilabel: bool = False       # sigmoid BCE (Yelp) vs softmax CE
-    # Aggregation engine for the Eq. 3/4 SpMM: "coo" (segment_sum fallback),
-    # "blocksparse" (Pallas MXU kernels; Topology must carry tiles), or
+    # Aggregation engine for the Eq. 3/4 SpMM: "coo" (padded COO: on the
+    # card the segment kernel of kernels/coo_spmm.py over the topology's
+    # sorted edge views, on the CPU gather + index_add_), "blocksparse"
+    # (the CUDA tile kernels; Topology must carry tiles), or
     # "fused" (blocksparse tiles + single-pass aggregate⊗transform kernels
     # with the dense weight contracted in the same grid pass).
     agg: str = "coo"

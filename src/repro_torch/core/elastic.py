@@ -318,7 +318,8 @@ def remap_topology(topo: Topology, plan: ElasticPlan) -> Topology:
     valid, and (``inner_mask=False``) add nothing to loss or eval. The
     kernels' schedules become those of the padded tile streams
     (`_remap_schedules`); a pad schedule the kernels could not walk raises
-    ValueError.
+    ValueError. COO views are built anew from the padded edges (pad
+    partitions get empty segments).
     """
     if topo.num_parts != plan.num_parts:
         raise ValueError(
@@ -337,11 +338,13 @@ def remap_topology(topo: Topology, plan: ElasticPlan) -> Topology:
     elif any(getattr(topo, k) is not None for k in _SCHEDULES):
         raise ValueError("the topology carries some of the kernels' "
                          "schedule fields but not all")
-    return topo._replace(**fields)
+    padded = topo._replace(**fields)
+    return padded if topo.coo_items is None else padded.with_coo_views()
 
 
 def unmap_topology(topo: Topology, plan: ElasticPlan) -> Topology:
-    """Inverse of :func:`remap_topology`: strip the pad partitions."""
+    """Inverse of :func:`remap_topology`: strip the pad partitions (COO
+    views are built anew for the narrower halo)."""
     p = plan.num_parts
     if topo.num_parts == p:
         return topo
@@ -351,7 +354,8 @@ def unmap_topology(topo: Topology, plan: ElasticPlan) -> Topology:
                   send_mask=topo.send_mask[:p, :p])
     if topo.tile_t_items is not None:
         fields.update(_unmap_schedules(topo, plan))
-    return topo._replace(**fields)
+    unpadded = topo._replace(**fields)
+    return unpadded if topo.coo_items is None else unpadded.with_coo_views()
 
 
 def remap_data(data: ShardedData, plan: ElasticPlan) -> ShardedData:

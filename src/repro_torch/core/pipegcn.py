@@ -79,6 +79,7 @@ from repro_torch.device import exact_f32_matmul, resolve_device
 from repro_torch.graph.halo import PartitionedGraph, extract_partition_tiles
 from repro_torch.graph.reorder import TILE_ENGINES
 from repro_torch.kernels.aggregate import get_engine
+from repro_torch.kernels.coo_spmm import coo_views
 from repro_torch.kernels.gcn_spmm import (SCHED_CHUNK, TILE, SplitSpec,
                                           run_pointers, tile_schedules)
 
@@ -94,6 +95,13 @@ class Topology(NamedTuple):
     ``tile_work`` / ``tile_items`` (``tile_t_work`` / ``tile_t_items`` for
     the transpose) are the nonzero-tile work lists and work items of
     ``gcn_spmm.tile_schedule`` that the spmm and fused kernels walk.
+
+    The `coo_*` fields are the COO kernel's views of the edges
+    (``coo_spmm.coo_views``): the real edges grouped by row with their row
+    pointers and work items, and grouped by column likewise. A COO
+    topology on the card carries them (``topology_from(pg)``,
+    ``with_coo_views``); a CPU or tile topology does not, and the COO
+    engine on the card refuses it.
     """
 
     edge_row: torch.Tensor    # (P, max_nnz) int32
@@ -114,6 +122,14 @@ class Topology(NamedTuple):
     tile_items: torch.Tensor | None = None    # (P, I, 5) int32
     tile_t_work: torch.Tensor | None = None   # (P, W', 2) int32
     tile_t_items: torch.Tensor | None = None  # (P, I', 5) int32
+    coo_row_ptr: torch.Tensor | None = None   # (P, max_inner+1) int32
+    coo_items: torch.Tensor | None = None     # (P, I, 5) int32
+    coo_src: torch.Tensor | None = None       # (P, E) int32 column, by row
+    coo_w: torch.Tensor | None = None         # (P, E) f32, by row
+    coo_col_ptr: torch.Tensor | None = None   # (P, combined+1) int32
+    coo_t_items: torch.Tensor | None = None   # (P, I', 5) int32
+    coo_t_src: torch.Tensor | None = None     # (P, E) int32 row, by column
+    coo_t_w: torch.Tensor | None = None       # (P, E) f32, by column
 
     @property
     def num_parts(self) -> int:
@@ -145,6 +161,13 @@ class Topology(NamedTuple):
             "tile_" + k: torch.from_numpy(v).to(self.tile_vals.device)
             for k, v in sch.items()})
 
+    def with_coo_views(self) -> "Topology":
+        """The same topology with the COO kernel's edge views built from
+        its COO fields, on their device (`coo_spmm.coo_views`)."""
+        return self._replace(**coo_views(
+            self.edge_row, self.edge_col, self.edge_w, self.max_inner,
+            self.max_inner + self.halo_size))
+
     def to(self, dtype: torch.dtype) -> "Topology":
         """The same topology with its float fields (edge and tile weights)
         in `dtype` — e.g. float64 for the exactness tests."""
@@ -166,7 +189,8 @@ def topology_from(pg: PartitionedGraph, with_tiles: bool = False,
                   device="cuda") -> Topology:
     """Lift a PartitionedGraph to tensors on `device`; `with_tiles=True`
     also extracts the block-sparse tile streams, their run pointers and
-    the kernels' schedules."""
+    the kernels' schedules, and without it, on the card, the COO kernel's
+    edge views are built there (`Topology.with_coo_views`)."""
     dev = resolve_device(device)
 
     def t(a):
@@ -184,10 +208,13 @@ def topology_from(pg: PartitionedGraph, with_tiles: bool = False,
                      tile_col_ptr=t(run_pointers(pt.t_out, ncb)),
                      **{"tile_" + k: t(v) for k, v in tile_schedules(
                          pt, pg.max_inner, pg.combined).items()})
-    return Topology(
+    topo = Topology(
         edge_row=t(pg.edge_row), edge_col=t(pg.edge_col),
         edge_w=t(pg.edge_w), send_idx=t(pg.send_idx),
         send_mask=t(pg.send_mask), inner_mask=t(pg.inner_mask), **tiles)
+    if with_tiles or dev.type != "cuda":
+        return topo
+    return topo.with_coo_views()
 
 
 def shard_data(pg: PartitionedGraph, x, labels, train_mask, eval_mask,
@@ -719,7 +746,8 @@ class PipeGCN:
         """The Topology fields the selected engine consumes."""
         engine = self.engine
         tslice = tuple(getattr(topo, f) for f in engine.fields)
-        if any(t is None for t in tslice):
+        if any(t is None and f not in engine.optional
+               for f, t in zip(engine.fields, tslice)):
             raise ValueError(
                 f"aggregation engine {engine.name!r} needs Topology fields "
                 f"{engine.fields}, but some are None — build the topology "

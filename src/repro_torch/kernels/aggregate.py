@@ -19,8 +19,11 @@ rows are valid.
 ``aggregate_transform*`` pair composes the SpMM with a dense matmul, except
 in the fused engine.
 
-  coo         padded COO: ``index_select`` + ``index_add_`` over a flattened
-              partition×row index (exact in float64: the oracle).
+  coo         padded COO (``repro_torch.kernels.coo_spmm``): on the card one
+              CUDA segment-reduction kernel per call over the topology's
+              sorted edge views (no per-edge intermediate, no float
+              atomic); on the CPU ``index_select`` + ``index_add_`` over a
+              flattened partition×row index (exact in float64: the oracle).
   blocksparse the block-sparse SpMM of ``repro_torch.kernels.gcn_spmm``
               (CUDA kernels on the card, the plain version on the CPU).
               Ragged row counts and feature widths are handled inside, so
@@ -42,7 +45,7 @@ import functools
 import torch
 
 from repro_torch import spans
-from repro_torch.kernels import gcn_spmm
+from repro_torch.kernels import coo_spmm, gcn_spmm
 
 
 def _traced(method):
@@ -62,6 +65,7 @@ class AggregationEngine:
 
     name: str
     fields: tuple[str, ...]
+    optional: tuple[str, ...] = ()    # fields a topology may leave None
 
     def spmm(self, tslice, comb, num_rows: int):
         raise NotImplementedError
@@ -92,69 +96,40 @@ class AggregationEngine:
         return self.spmm_t(tslice, du @ w.T, num_cols)
 
 
-def _flat_index(idx: torch.Tensor, stride: int) -> torch.Tensor:
-    """(P, n) per-partition row index -> (P·n,) index into a (P·stride) axis."""
-    p = torch.arange(idx.shape[0], device=idx.device)[:, None]
-    return (idx.long() + stride * p).reshape(-1)
-
-
-def _phase_keep(in_boundary: torch.Tensor, phase: str) -> torch.Tensor:
-    """Edge-level phase membership from a boundary predicate."""
-    if phase == "boundary":
-        return in_boundary
-    if phase == "interior":
-        return ~in_boundary
-    raise ValueError(f"phase must be 'boundary' or 'interior', got {phase!r}")
-
-
-def _coo(src, dst, w, x, num_out: int):
-    """out[p, dst[p, e]] += w[p, e] · x[p, src[p, e]] for every edge e."""
-    p, n_in, f = x.shape
-    vals = x.reshape(p * n_in, f).index_select(0, _flat_index(src, n_in))
-    vals = vals * w.to(x.dtype).reshape(-1, 1)
-    out = x.new_zeros(p * num_out, f)
-    out.index_add_(0, _flat_index(dst, num_out), vals)
-    return out.reshape(p, num_out, f)
-
-
-class CooEngine(AggregationEngine):
-    """Padded-COO aggregation (gather + scatter-add)."""
-
-    name = "coo"
-    fields = ("edge_row", "edge_col", "edge_w")
-
-    @_traced
-    def spmm(self, tslice, comb, num_rows: int):
-        edge_row, edge_col, edge_w = tslice
-        return _coo(edge_col, edge_row, edge_w, comb, num_rows)
-
-    @_traced
-    def spmm_t(self, tslice, dz, num_cols: int):
-        edge_row, edge_col, edge_w = tslice
-        return _coo(edge_row, edge_col, edge_w, dz, num_cols)
-
-    # Out-of-phase edges get weight 0, so each phase's own rows see the
-    # same sequence of terms as the unsplit call (the zeroed terms add an
-    # exact 0.0); out-of-phase rows come out zero, as in the JAX package.
-    @_traced
-    def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
-        edge_row, edge_col, edge_w = tslice
-        keep = _phase_keep(edge_row >= split.row_tail, phase)
-        return _coo(edge_col, edge_row, torch.where(keep, edge_w, 0), comb,
-                    num_rows)
-
-    @_traced
-    def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
-        edge_row, edge_col, edge_w = tslice
-        keep = _phase_keep(edge_col >= split.col_tail, phase)
-        return _coo(edge_row, edge_col, torch.where(keep, edge_w, 0), dz,
-                    num_cols)
-
-
 def _named(fields: tuple[str, ...], names: tuple[str, ...]):
     """tslice (a tuple over `fields`) -> the tuple of its fields `names`."""
     at = [fields.index(n) for n in names]
     return lambda tslice: tuple(tslice[i] for i in at)
+
+
+class CooEngine(AggregationEngine):
+    """Padded-COO aggregation: the segment-reduction kernel of `coo_spmm`
+    on the card, gather + scatter-add on the CPU. A tslice holds the three
+    edge fields, then the forward and the transpose view
+    (`Topology.with_coo_views`), which the CPU path does not read and a
+    CPU topology leaves None."""
+
+    name = "coo"
+    optional = coo_spmm.FWD_VIEW + coo_spmm.BWD_VIEW
+    fields = ("edge_row", "edge_col", "edge_w") + optional
+
+    @_traced
+    def spmm(self, tslice, comb, num_rows: int):
+        return coo_spmm.spmm(tslice[:3], tslice[3:7], comb, num_rows)
+
+    @_traced
+    def spmm_t(self, tslice, dz, num_cols: int):
+        return coo_spmm.spmm_t(tslice[:3], tslice[7:11], dz, num_cols)
+
+    @_traced
+    def spmm_phased(self, tslice, comb, num_rows: int, split, phase: str):
+        return coo_spmm.spmm_phased(tslice[:3], tslice[3:7], comb, num_rows,
+                                    split, phase)
+
+    @_traced
+    def spmm_t_phased(self, tslice, dz, num_cols: int, split, phase: str):
+        return coo_spmm.spmm_t_phased(tslice[:3], tslice[7:11], dz, num_cols,
+                                      split, phase)
 
 
 class BlockSparseEngine(AggregationEngine):

@@ -8,7 +8,8 @@ over abstract topology arrays sized from the paper's largest setting
 feat 128). Here rank 0 of a fake process group of 256 (512) ranks runs
 one training step of its own partition on ``SpmdBackend``, over a seeded
 synthetic topology at those sizes, on the COO engine (as JAX's dry-run
-does: ``ModelConfig.agg = "coo"``, so none of the port's kernels runs).
+does: ``ModelConfig.agg = "coo"``; on the card its segment kernel,
+``kernels/coo_spmm.py``, runs every aggregation).
 Each boundary exchange is an ``all_to_all_single`` that the fake group
 turns into a no-op, so the step's shapes, launches and memory are rank
 0's production ones while its values mean nothing.
@@ -70,8 +71,9 @@ def synthetic_rank0(sizes, num_parts: int, device,
     one full send block of `slot` rows per peer (from the boundary tail
     when `split` is given, as a real split's sends are), every node
     inner, and N(0, 1) features, uniform labels and all-true masks.
-    Built on the host in numpy and moved to `device` (on ``meta`` only
-    the shapes remain)."""
+    Built on the host in numpy and moved to `device`, where the COO
+    kernel's edge views are built (on ``meta`` only the shapes remain, and
+    no views: their sizes depend on the values)."""
     rng = np.random.default_rng(0)
     mi, sl, nz = sizes["max_inner"], sizes["slot"], sizes["max_nnz"]
     combined = mi + num_parts * sl
@@ -91,6 +93,8 @@ def synthetic_rank0(sizes, num_parts: int, device,
         x=t(rng.standard_normal((mi, sizes["feat_dim"]), np.float32)),
         labels=t(rng.integers(0, sizes["num_classes"], mi, dtype=np.int32)),
         train_mask=t(np.ones(mi, bool)), eval_mask=t(np.ones(mi, bool)))
+    if torch.device(device).type != "meta":
+        topo = topo.with_coo_views()
     return topo, data
 
 
@@ -162,6 +166,7 @@ def dryrun_pipegcn(multi_pod: bool, variant: str = "pipegcn", sizes=None,
     result["boundary_collectives_expected"] = expected_boundary_collectives(
         mc.num_layers, pc.fused, train=True)
     result["overlap"] = pc.overlap
+    result["orders_train"] = model.step_orders(topo, train=True)
     if model._split_active() is not None:
         mi = sizes["max_inner"]
         result["overlap_phase_rows"] = {
@@ -171,8 +176,8 @@ def dryrun_pipegcn(multi_pod: bool, variant: str = "pipegcn", sizes=None,
             "col_tail": split.col_tail,
             "t_boundary_rows": mi - split.col_tail + n * sizes["slot"],
         }
-        # each phase is one COO scatter-add launch: an exchange between two
-        # of them was issued mid-layer (JAX's event names)
+        # each phase is one COO aggregation launch: an exchange between two
+        # of them was issued mid-layer (JAX's event names: "scatter-add")
         result["overlap_events"] = [
             "scatter-add" if isinstance(e, tuple) else "all_to_all"
             for e in rec.events if e != "exchange_wait"]
